@@ -32,6 +32,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import glob
 import json
 import os
@@ -50,7 +51,13 @@ from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_config
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.ops import kernels
-from clip_diffusion_tpu_torch.ops.quantile import histogram_quantile, histogram_quantile_plain
+from clip_diffusion_tpu_torch.ops import quantile as quantile_ops
+from clip_diffusion_tpu_torch.ops.quantile import (
+    histogram_abs_quantile,
+    histogram_abs_quantile_plain,
+    histogram_quantile,
+    histogram_quantile_plain,
+)
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
 from clip_diffusion_tpu_torch.sample import guided_diffusion_sample
 from clip_diffusion_tpu_torch.zoo import ZooModels, build_models, build_pipeline, host_init_state_dict
@@ -103,58 +110,110 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_histogram_quantile(dev) -> dict:
-    """The kernel against the plain version (within 1e-6 * max|x|: the
-    same float32 expressions, rounding only in the interpolation) and
-    torch.quantile (within max|x| / 2048, the histogram's bound, plus
-    1e-6 * max|x| of rounding) on (1, N) and (4, N) rows."""
-    gen = torch.Generator(dev).manual_seed(0)
+# Both modes of csrc/histogram_quantile.cu: wrapper, plain version, the TPU
+# kernel or JAX function it stands for, its bins and the operations per
+# element counted for its bound.
+QUANTILE_KERNELS = {
+    "histogram_quantile": dict(
+        fn=histogram_quantile, plain=histogram_quantile_plain, bins=2048, on_path=False,
+        replaces="clip_diffusion_tpu/ops/quantile.py:79",
+        ops_per_elem=6),  # abs, max, divide, multiply, truncate/clip, count
+    "histogram_abs_quantile": dict(
+        fn=histogram_abs_quantile, plain=histogram_abs_quantile_plain, bins=4096, on_path=True,
+        replaces="clip_diffusion_tpu/ops/quantile.py:29",
+        # abs, max; coarse: range test, guess (multiply, convert), about 2
+        # edge comparisons, count; fine: 2 range tests, count
+        ops_per_elem=11),
+}
+
+
+def quantile_cases(gen, dev):
+    """(label, x) pairs: 1 and 4 rows at the main row's length in float32,
+    bfloat16 and float16 at three scales, a 4-row case with an all-zero and
+    a constant row, and the (16, 786432) float32 case whose 50 MB exceed
+    what the resident grid stages in shared memory (the tiled path)."""
     n = MAIN_ROW[1]
-    cases = []
-    for rows in (1, 4):
-        for scale in (0.5, 3.0, 40.0):
-            cases.append(torch.randn((rows, n), generator=gen, device=dev) * scale)
-    edge = torch.randn((4, n), generator=gen, device=dev)
-    edge[1] = 0.0  # all-zero row
-    edge[2] = -0.7  # constant row
-    cases.append(edge)
-    max_err = 0.0
-    for x in cases:
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for rows in (1, 4):
+            for scale in (0.5, 3.0, 40.0):
+                x = torch.randn((rows, n), generator=gen, device=dev) * scale
+                yield f"({rows}, {n}) {dtype} scale {scale}", x.to(dtype)
+        edge = torch.randn((4, n), generator=gen, device=dev)
+        edge[1] = 0.0  # all-zero row
+        edge[2] = -0.7  # constant row
+        yield f"(4, {n}) {dtype} zero/constant rows", edge.to(dtype)
+    yield f"(16, {n}) float32 tiled", torch.randn((16, n), generator=gen, device=dev) * 3.0
+
+
+def device_us_per_call(fn, name: str, calls: int = 20):
+    """torch.profiler over `calls` calls: device microseconds per call of the
+    kernels whose name holds `name`, and device operations per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # the first session may drop events
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    us = sum(e.time_range.elapsed_us() for e in dev_events if name in e.name) / calls
+    return us, len(dev_events) / calls
+
+
+def check_quantile_kernel(dev, name: str) -> dict:
+    """One mode of the kernel against its plain version on the same device
+    inputs, bit for bit (tolerance 0: the same float32 expressions in the
+    same order, integer counts), and against torch.quantile within its
+    bound max|x| / bins plus 1e-6 * max|x| of rounding.  Then its times at
+    the main row (1, 786432) f32, q = 0.995."""
+    spec = QUANTILE_KERNELS[name]
+    fn, plain, bins = spec["fn"], spec["plain"], spec["bins"]
+    gen = torch.Generator(dev).manual_seed(0)
+    max_err, n_cases = 0.0, 0
+    for label, x in quantile_cases(gen, dev):
         for q in (0.5, 0.995, 1.0):
-            got = histogram_quantile(x, q)
-            plain = histogram_quantile_plain(x, q)
-            exact = torch.quantile(x.abs(), q, dim=1)
+            got = fn(x, q)
+            ref = plain(x, q)
+            exact = torch.quantile(x.float().abs(), q, dim=1)
             torch.cuda.synchronize()
-            hi = x.abs().amax(dim=1).clamp_min(1e-12)
-            err = (got - plain).abs()
-            if not bool(torch.all(err <= 1e-6 * hi)):
-                raise AssertionError(f"histogram_quantile vs plain: err {err.tolist()} q={q}")
-            if not bool(torch.all((got - exact).abs() <= hi / 2048 + 1e-6 * hi)):
-                raise AssertionError(f"histogram_quantile vs torch.quantile: q={q}")
-            max_err = max(max_err, float(err.max()))
-    print(f"histogram_quantile: {len(cases) * 3} cases agree; max |kernel - plain| = {max_err:.3e}",
+            hi = x.float().abs().amax(dim=1).clamp_min(1e-12)
+            err = float((got - ref).abs().max())
+            if err != 0.0:
+                raise AssertionError(f"{name} vs plain: {label} q={q} err {err:.3e}")
+            if not bool(torch.all((got - exact).abs() <= hi / bins + 1e-6 * hi)):
+                raise AssertionError(f"{name} vs torch.quantile: {label} q={q}")
+            max_err = max(max_err, err)
+            n_cases += 1
+    print(f"{name}: {n_cases} cases equal the plain version bit for bit "
+          f"(max |kernel - plain| = {max_err:.3e}), within max|x|/{bins} of torch.quantile",
           flush=True)
 
     x = torch.randn(MAIN_ROW, generator=gen, device=dev) * 3.0
-    ms = cuda_ms(lambda: histogram_quantile(x, QUANTILE))
-    plain_ms = cuda_ms(lambda: histogram_quantile_plain(x, QUANTILE))
+    grid = ctypes.c_int()
+    quantile_ops._launch(x, QUANTILE, bins, name == "histogram_abs_quantile", grid)
+    ms = cuda_ms(lambda: fn(x, QUANTILE))
+    plain_ms = cuda_ms(lambda: plain(x, QUANTILE))
     library_ms = cuda_ms(lambda: torch.quantile(x.abs(), QUANTILE, dim=1))
+    device_us, ops_per_call = device_us_per_call(lambda: fn(x, QUANTILE), name + "_kernel")
     rows, n = MAIN_ROW
     bytes_moved = 4 * rows * n + 4 * rows  # x read once, (B,) written once
-    ops = 5 * rows * n  # abs, divide, multiply, truncate/clip, count per element
     bound_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_ops = ops / F32_OPS_PER_S * 1e3
-    print(f"histogram_quantile {MAIN_ROW} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.quantile {library_ms:.4f} ms, bound {max(bound_bytes, bound_ops):.5f} ms",
-          flush=True)
+    bound_ops = spec["ops_per_elem"] * rows * n / F32_OPS_PER_S * 1e3
+    print(f"{name} {MAIN_ROW} f32 q={QUANTILE}: as called {ms:.4f} ms, device "
+          f"{device_us:.2f} us/call in {ops_per_call:.2f} device ops/call, grid {grid.value} "
+          f"blocks; plain {plain_ms:.4f} ms, torch.quantile {library_ms:.4f} ms, bound "
+          f"{max(bound_bytes, bound_ops):.5f} ms", flush=True)
     return {
-        "name": "histogram_quantile", "route": "cuda",
+        "name": name, "route": "cuda",
         "source": "clip_diffusion_tpu_torch/csrc/histogram_quantile.cu",
-        "replaces": "clip_diffusion_tpu/ops/quantile.py:79",
+        "replaces": spec["replaces"],
         "launches": None, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "device_ms": device_us / 1e3,
     }
 
 
@@ -250,6 +309,7 @@ def run_main_path(dev, steps: int, out_dir: str) -> dict:
     uploader = _TimingUploader()
     torch.cuda.reset_peak_memory_stats()
     histogram_quantile.launches = 0
+    histogram_abs_quantile.launches = 0
     t0 = time.perf_counter()
     result = guided_diffusion_sample(
         prompt=PROMPT,
@@ -258,12 +318,13 @@ def run_main_path(dev, steps: int, out_dir: str) -> dict:
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = histogram_quantile.launches
+    launches = {"histogram_quantile": histogram_quantile.launches,
+                "histogram_abs_quantile": histogram_abs_quantile.launches}
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
 
-    if launches != steps:
-        raise AssertionError(f"histogram_quantile launched {launches} times in {steps} steps")
+    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+        raise AssertionError(f"quantile kernel launches in {steps} steps: {launches}")
     if len(finite) != steps or not all(bool(f) for f in finite):
         raise AssertionError(f"UNet outputs finite per step: {[bool(f) for f in finite]}")
     with Image.open(result["images"][0]) as im:
@@ -277,15 +338,16 @@ def run_main_path(dev, steps: int, out_dir: str) -> dict:
     step_ms = (uploader.times[1] - uploader.times[0]) / 5 * 1e3 if len(uploader.times) > 1 else None
     print(f"main path: {steps} steps in {wall:.2f} s; steady step {step_ms:.1f} ms "
           f"(positions 1-5); peak memory {peak / 2**30:.2f} GiB; "
-          f"histogram_quantile launches {launches}; image {result['images'][0]}", flush=True)
+          f"quantile kernel launches {launches}; image {result['images'][0]}", flush=True)
     return {"steps": steps, "wall_s": wall, "step_ms": step_ms, "peak_bytes": peak,
-            "launches": {"histogram_quantile": launches}, "models": models, "config": config}
+            "launches": launches, "models": models, "config": config}
 
 
 # kernel-name fragments -> class, first match wins (cuDNN, cuBLAS and the
 # port's own kernels as the profiler names them)
 _KERNEL_CLASSES = (
-    ("histogram", "histogram_quantile"),
+    ("histogram_abs_quantile", "histogram_abs_quantile"),
+    ("histogram_quantile", "histogram_quantile"),
     ("conv", "convolution"), ("cudnn", "convolution"), ("dgrad", "convolution"),
     ("wgrad", "convolution"), ("fprop", "convolution"),
     ("gemm", "matmul"), ("cutlass", "matmul"), ("xmma", "matmul"), ("nvjet", "matmul"),
@@ -383,7 +445,7 @@ def main(argv=None) -> int:
     build_all()
 
     phase("kernels")
-    records = [check_histogram_quantile(dev)]
+    records = [check_quantile_kernel(dev, name) for name in QUANTILE_KERNELS]
 
     phase("reference")
     check_reference(dev)
@@ -392,7 +454,7 @@ def main(argv=None) -> int:
     main_run = run_main_path(dev, args.steps, args.out)
     for rec in records:
         rec["launches"] = main_run["launches"][rec["name"]]
-        if rec["launches"] == 0:
+        if QUANTILE_KERNELS[rec["name"]]["on_path"] and rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was not launched on the main path")
     phase("profile")
     profile_steps(dev, main_run["models"], main_run["config"], 2, args.out)

@@ -32,8 +32,9 @@ class SamplerConfig:
     skip_timesteps: int = 0
     order: int = 2  # PLMS multistep order
     dynamic_thresholding_percentile: float = 0.995
-    # "histogram": the 2048-bin histogram quantile (ops/quantile.py, a CUDA
-    # kernel on the GPU); "sort": exact torch.quantile
+    # "histogram": the JAX main path's two-level 4096-bin quantile
+    # (ops/quantile.histogram_abs_quantile, a CUDA kernel on the GPU);
+    # "sort": exact torch.quantile
     thresholding_method: str = "histogram"
 
 

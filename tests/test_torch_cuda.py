@@ -3,7 +3,10 @@ package, so a machine with a GPU and no JAX runs it with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Without a CUDA device every test skips."""
+Without a CUDA device every test skips.  Both modes of the kernel are held
+against their plain PyTorch versions on the same device inputs, bit for bit:
+the kernel evaluates the plain versions' float32 expressions in their order
+and counts with integers."""
 
 import numpy as np
 import pytest
@@ -11,9 +14,16 @@ import torch
 
 from clip_diffusion_tpu_torch.ops.quantile import (
     dynamic_threshold_fast,
+    histogram_abs_quantile,
+    histogram_abs_quantile_plain,
     histogram_quantile,
     histogram_quantile_plain,
 )
+
+MODES = {
+    "histogram_quantile": (histogram_quantile, histogram_quantile_plain),
+    "histogram_abs_quantile": (histogram_abs_quantile, histogram_abs_quantile_plain),
+}
 
 
 @pytest.fixture
@@ -23,36 +33,72 @@ def cuda():
     return torch.device("cuda")
 
 
+def _rows(rng, rows, n, dtype, device, edge=False):
+    x = rng.normal(0, 3, (rows, n)).astype(np.float32)
+    if edge:
+        x[1] = 0.0  # all-zero row
+        x[2] = -0.7  # constant row
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def _check_one_launch(name, x, q):
+    kernel, plain = MODES[name]
+    before = kernel.launches
+    got = kernel(x, q)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = plain(x, q)
+    assert got.dtype == torch.float32 and got.shape == (x.shape[0],)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda):
-    """The CUDA kernel against the plain version on the same device inputs:
-    within 1e-6 * max|x|, and one launch counted per call."""
-    rng = np.random.default_rng(10)
-    for rows in (1, 4):
-        x = torch.from_numpy(rng.normal(0, 3, (rows, 786432)).astype(np.float32)).to(cuda)
-        for q in (0.5, 0.995, 1.0):
-            before = histogram_quantile.launches
-            got = histogram_quantile(x, q)
-            torch.cuda.synchronize()
-            assert histogram_quantile.launches == before + 1
-            ref = histogram_quantile_plain(x, q)
-            tol = 1e-6 * float(x.abs().max())
-            assert float((got - ref).abs().max()) <= tol
+@pytest.mark.parametrize("name", sorted(MODES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows", [1, 4])
+def test_kernel_matches_plain_on_card(cuda, name, dtype, rows):
+    """Each mode against its plain version at the main path's row length,
+    with zero and constant rows among the four: equal, one launch per call."""
+    rng = np.random.default_rng(rows)
+    x = _rows(rng, rows, 786432, dtype, cuda, edge=rows == 4)
+    for q in (0.5, 0.995, 1.0):
+        _check_one_launch(name, x, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MODES))
+def test_tiled_path_matches_plain(cuda, name):
+    """(16, 786432) float32 is 50 MB, more than the resident grid's shared
+    memory stages at once: each block walks its segment in tiles."""
+    x = _rows(np.random.default_rng(16), 16, 786432, torch.float32, cuda)
+    _check_one_launch(name, x, 0.995)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(MODES))
+def test_workspace_is_left_zeroed(cuda, name):
+    """Two calls in a row on different data each equal a fresh plain
+    result, also at a ragged row length (unaligned bulk-copy heads)."""
+    rng = np.random.default_rng(12)
+    for shape in ((1, 786432), (3, 100003), (1, 786432)):
+        _check_one_launch(name, _rows(rng, *shape, torch.float32, cuda), 0.995)
 
 
 @pytest.mark.cuda
 def test_threshold_launches_kernel_and_never_falls_back(cuda):
-    """dynamic_threshold_fast on a 512^2 CUDA image launches the kernel once
+    """dynamic_threshold_fast on a 512^2 CUDA image launches mode B once
     and equals the thresholding of the plain quantile; a CUDA tensor the
     kernel cannot take raises instead of running elsewhere."""
     rng = np.random.default_rng(11)
     x = torch.from_numpy(rng.normal(0, 1.5, (1, 512, 512, 3)).astype(np.float32)).to(cuda)
-    before = histogram_quantile.launches
+    before_b, before_a = histogram_abs_quantile.launches, histogram_quantile.launches
     got = dynamic_threshold_fast(x, 0.995)
-    assert histogram_quantile.launches == before + 1
-    thresh = torch.clamp_min(histogram_quantile_plain(x.reshape(1, -1), 0.995), 1.0)
-    torch.testing.assert_close(got, torch.clamp(x, -thresh, thresh) / thresh, rtol=0, atol=1e-6)
-    with pytest.raises(ValueError, match="contiguous"):
-        histogram_quantile(x.reshape(1, -1)[:, ::2], 0.5)
-    with pytest.raises(TypeError, match="dtype"):
-        histogram_quantile(x.reshape(1, -1).double(), 0.5)
+    assert histogram_abs_quantile.launches == before_b + 1
+    assert histogram_quantile.launches == before_a
+    thresh = torch.clamp_min(histogram_abs_quantile_plain(x.reshape(1, -1), 0.995), 1.0)
+    torch.testing.assert_close(got, torch.clamp(x, -thresh, thresh) / thresh, rtol=0, atol=0)
+    for kernel in (histogram_quantile, histogram_abs_quantile):
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(x.reshape(1, -1)[:, ::2], 0.5)
+        with pytest.raises(TypeError, match="dtype"):
+            kernel(x.reshape(1, -1).double(), 0.5)

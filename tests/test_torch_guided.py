@@ -136,9 +136,8 @@ def test_one_step_matches(pipelines):
 @pytest.mark.parametrize("method,atol", [
     # exact quantile on both sides: only float32 summation order differs
     ("sort", 2e-4),
-    # port: single-level 2048-bin quantile; JAX: two-level 4096-bin count.
-    # Thresholds may differ by max|pred_x0| * (1/2048 + 1/4096) per step
-    ("histogram", 2e-2),
+    # the two-level 4096-bin count on both sides: the same, and no more
+    ("histogram", 2e-4),
 ])
 def test_five_step_trajectory_matches(pipelines, method, atol):
     torch.set_num_threads(1)

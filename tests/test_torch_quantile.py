@@ -1,6 +1,7 @@
-"""The port's histogram quantile (plain version on the CPU) against the
-JAX package's Pallas kernel in interpret mode, `torch.quantile` and the
-JAX thresholding.  The CUDA kernel's tests are in test_torch_cuda.py."""
+"""The port's two histogram quantiles (plain versions on the CPU): the
+Pallas kernel's against it in interpret mode and `torch.quantile`, the JAX
+main path's two-level count and `dynamic_threshold_fast` against the JAX
+package's.  The CUDA kernel's tests are in test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,12 +11,14 @@ from jax.experimental.pallas import tpu as pltpu
 
 from clip_diffusion_tpu.diffusion.sampling import dynamic_threshold as jax_dynamic_threshold
 from clip_diffusion_tpu.ops.quantile import (
+    dynamic_threshold_fast as jax_dynamic_threshold_fast,
     histogram_abs_quantile as jax_histogram_abs_quantile,
     histogram_quantile_pallas,
 )
 from clip_diffusion_tpu_torch.ops.quantile import (
     dynamic_threshold_fast,
     histogram_abs_quantile,
+    histogram_abs_quantile_plain,
     histogram_quantile,
     histogram_quantile_plain,
 )
@@ -79,6 +82,47 @@ def test_abs_quantile_matches_jax():
     assert np.all(np.abs(got - ref) <= np.abs(x).max(axis=1) * (1 / 2048 + 1 / 4096))
 
 
+@pytest.mark.parametrize("bins", [4096, 2048])  # lvl 64, and a non-square count (lvl 46)
+@pytest.mark.parametrize("rows", ["normal", "zero", "constant", "mixed3"])
+def test_abs_quantile_plain_matches_jax(bins, rows):
+    """histogram_abs_quantile_plain against the JAX function on the same
+    rows: within 1e-6 * max|x| per row (the JAX side interpolates in
+    float64 under the tests' x64 mode, the port in float32)."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(bins + len(rows))
+    n = 6000
+    normal = rng.normal(0, 1.5, (1, n)).astype(np.float32)
+    x = {
+        "normal": normal,
+        "zero": np.zeros((1, n), np.float32),
+        "constant": np.full((1, n), -0.7, np.float32),
+        "mixed3": np.concatenate([normal, np.zeros((1, n), np.float32),
+                                  np.full((1, n), -0.7, np.float32)]),
+    }[rows]
+    tol = 1e-6 * np.maximum(np.abs(x).max(axis=1), 1e-12)
+    for q in (0.5, 0.995, 1.0):
+        ref = np.asarray(jax_histogram_abs_quantile(jnp.asarray(x), q, bins))
+        got = histogram_abs_quantile_plain(torch.from_numpy(x), q, bins).numpy()
+        assert got.dtype == np.float32 and got.shape == (x.shape[0],)
+        assert np.all(np.abs(got - ref) <= tol), (q, got, ref)
+        # on a CPU tensor the public function is the plain version
+        np.testing.assert_array_equal(histogram_abs_quantile(torch.from_numpy(x), q, bins).numpy(),
+                                      got)
+
+
+@pytest.mark.parametrize("bins", [4096, 2048])
+def test_dynamic_threshold_fast_matches_jax_fast(bins):
+    """The port's `"histogram"` threshold against the JAX main path's
+    dynamic_threshold_fast with the same bins: thresholds agree within
+    1e-6 * max|x|, so the thresholded images within 1e-5 on [-1, 1]."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(bins)
+    x = rng.normal(0, 1.5, (2, 64, 64, 3)).astype(np.float32)
+    got = dynamic_threshold_fast(torch.from_numpy(x), 0.995, bins).numpy()
+    ref = np.asarray(jax_dynamic_threshold_fast(jnp.asarray(x), 0.995, bins))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
 def test_dynamic_threshold_fast_matches_jax_exact():
     """Against JAX's sort-based dynamic_threshold: atol 5e-3, as the JAX
     package holds its own fast threshold."""
@@ -98,3 +142,7 @@ def test_wrapper_rejects_bad_input():
         histogram_quantile(torch.zeros(8), 0.5)
     with pytest.raises(ValueError):
         histogram_quantile(torch.zeros((1, 8)), 0.5, bins=0)
+    with pytest.raises(ValueError):
+        histogram_abs_quantile(torch.zeros(8), 0.5)
+    with pytest.raises(ValueError):
+        histogram_abs_quantile(torch.zeros((1, 8)), 0.5, bins=20000)

@@ -2,6 +2,7 @@
 by `models/from_jax.py`."""
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -128,6 +129,25 @@ def test_timestep_embedding_matches():
     ref = np.asarray(ju.timestep_embedding(jnp.asarray(t, jnp.float32), 128))
     got = tu.timestep_embedding(torch.from_numpy(t.astype(np.float32)), 128).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-6)
+
+
+def test_timestep_embedding_against_jax_float32():
+    """The JAX main path embeds in float32 (x64 off), the port in float64.
+    Over t = 0..999 at dim 256 the port is within 5.58e-5 of it, and a
+    float32 port of the same expressions within 3.05e-5: near t = 1000
+    torch's and XLA's float32 exp/sin/cos differ by about as much as the
+    dtypes do, so a float32 port would not agree either."""
+    t = np.arange(1000, dtype=np.float32)
+    with jax.enable_x64(False):
+        ref = np.asarray(ju.timestep_embedding(jnp.asarray(t), 256))
+    got = tu.timestep_embedding(torch.from_numpy(t), 256).numpy()
+    half = 128
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(half, dtype=torch.float32) / half)
+    args = torch.from_numpy(t)[:, None] * freqs[None, :]
+    f32 = torch.cat([torch.cos(args), torch.sin(args)], dim=-1).numpy()
+    assert ref.dtype == np.float32
+    assert np.abs(got - ref).max() <= 5.58e-5 * 1.01, np.abs(got - ref).max()
+    assert np.abs(f32 - ref).max() <= 3.05e-5 * 1.01, np.abs(f32 - ref).max()
 
 
 def test_remat_same_output_and_input_grad():
