@@ -1,7 +1,8 @@
-"""OpenAI-CLIP ViT towers in PyTorch.
+"""OpenAI-CLIP towers in PyTorch.
 
-Counterpart of `clip_diffusion_tpu.models.clip.model` for the ViT
-perceptors (ViT-B/32, ViT-B/16, ViT-L/14) and the text tower: packed
+Counterpart of `clip_diffusion_tpu.models.clip.model`: the ViT perceptors
+(ViT-B/32, ViT-B/16, ViT-L/14), the ModifiedResNet perceptors (RN50,
+RN101) and the text tower.  ViT and text: packed
 [q; k; v] `in_proj`, QuickGELU MLPs, pre-LN blocks, float32 LayerNorm
 (eps 1e-5), attention logits in the compute dtype scaled by multiplying
 with 1/sqrt(d), float32 softmax, and EOT pooling at argmax(tokens).
@@ -9,8 +10,18 @@ Parameter names follow the OpenAI checkpoints (`visual.conv1.weight`,
 `transformer.resblocks.0.attn.in_proj_weight`, ...); the patch embedding is
 a stride-p conv whose (width, c, p, p) weight is the JAX (p, p, c, width)
 kernel transposed.  Image inputs are CLIP-normalized NHWC; apply
-`clip_normalize` to [0, 1] images first.  The ModifiedResNet towers (RN50,
-RN101) are a later slice of the port.
+`clip_normalize` to [0, 1] images first.
+
+ModifiedResNet: the 3-conv stem with a 2x2 average pool, bottlenecks whose
+downsampling is an average pool before a stride-1 conv, and an attention
+pool (mean token prepended, separate q/k/v projections, query from token 0
+only).  As in the JAX package, each conv runs in the compute dtype while
+every BatchNorm output, ReLU, average pool and residual sum is float32 (the
+next conv casts back), and the attention pool takes its logits in float32.
+BatchNorm is the eval form on running statistics (eps 1e-5), holding
+`weight`, `bias`, `running_mean` and `running_var` and nothing else.
+Names follow the OpenAI checkpoints (`visual.layer1.0.downsample.0.weight`,
+`visual.attnpool.q_proj.weight`, ...).
 """
 
 from __future__ import annotations
@@ -70,8 +81,13 @@ CLIP_PRESETS = {
 }
 
 
-def tiny_clip_config(name: str = "tiny") -> CLIPConfig:
-    """Small ViT config with the same topology, for tests."""
+def tiny_clip_config(name: str = "tiny", resnet: bool = False) -> CLIPConfig:
+    """Small config with the same topology, for tests."""
+    if resnet:
+        return CLIPConfig(
+            name, 64, 64, (1, 1, 1, 1), 8, None, 4,
+            text_width=32, text_heads=2, text_layers=2,
+        )
     return CLIPConfig(
         name, 64, 32, 2, 64, 16, 4, text_width=32, text_heads=2, text_layers=2
     )
@@ -186,18 +202,138 @@ class VisionTransformer(nn.Module):
         return x @ self.proj.to(dt)
 
 
+class FrozenBatchNorm2d(nn.Module):
+    """Eval-mode BatchNorm over NCHW on running statistics, returned in
+    float32: (x - mean) * (rsqrt(var + eps) * weight) + bias, evaluated in
+    the promoted dtype of x and the statistics, as flax's BatchNorm does."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x):
+        shape = (1, -1, 1, 1)
+        mean = self.running_mean.reshape(shape)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x - mean) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(torch.float32)
+
+
+def _conv(x, conv: nn.Conv2d, dt):
+    return F.conv2d(x.to(dt), conv.weight.to(dt), stride=conv.stride, padding=conv.padding)
+
+
+def _avg_pool(x, stride: int):
+    return x if stride == 1 else F.avg_pool2d(x, stride, stride)
+
+
+class Bottleneck(nn.Module):
+    """Expansion-4 bottleneck; downsampling is an average pool before the
+    stride-1 conv3, and before the 1x1 downsample conv of the identity."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int, dtype):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.downsample = None
+        if stride > 1 or inplanes != planes * 4:
+            self.downsample = nn.ModuleDict({
+                "0": nn.Conv2d(inplanes, planes * 4, 1, bias=False),
+                "1": FrozenBatchNorm2d(planes * 4),
+            })
+
+    def forward(self, x):
+        dt = self.dtype
+        out = F.relu(self.bn1(_conv(x, self.conv1, dt)))
+        out = F.relu(self.bn2(_conv(out, self.conv2, dt)))
+        out = self.bn3(_conv(_avg_pool(out, self.stride), self.conv3, dt))
+        identity = x
+        if self.downsample is not None:
+            identity = _conv(_avg_pool(x, self.stride), self.downsample["0"], dt)
+            identity = self.downsample["1"](identity)
+        return F.relu(out + identity)
+
+
+class AttentionPool2d(nn.Module):
+    """Attention pooling of the final feature map: the mean token is
+    prepended, the query comes from token 0 only, float32 logits."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, heads: int,
+                 output_dim: int, dtype):
+        super().__init__()
+        self.heads, self.dtype = heads, dtype
+        self.positional_embedding = nn.Parameter(torch.empty(spacial_dim**2 + 1, embed_dim))
+        self.q_proj = Linear(embed_dim, embed_dim, dtype=dtype)
+        self.k_proj = Linear(embed_dim, embed_dim, dtype=dtype)
+        self.v_proj = Linear(embed_dim, embed_dim, dtype=dtype)
+        self.c_proj = Linear(embed_dim, output_dim, dtype=dtype)
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        x = x.flatten(2).transpose(1, 2)  # NCHW -> (b, h*w, c), row-major
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        x = x + self.positional_embedding.to(x.dtype)
+        d = c // self.heads
+        q = self.q_proj(x[:, :1]).reshape(b, 1, self.heads, d).transpose(1, 2)
+        k = self.k_proj(x).reshape(b, -1, self.heads, d).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, -1, self.heads, d).transpose(1, 2)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (1.0 / d**0.5)
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, 1, c)
+        return self.c_proj(out)[:, 0]
+
+
+class ModifiedResNet(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        width = cfg.vision_width
+        self.conv1 = nn.Conv2d(3, width // 2, 3, stride=2, padding=1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(width // 2)
+        self.conv2 = nn.Conv2d(width // 2, width // 2, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(width // 2)
+        self.conv3 = nn.Conv2d(width // 2, width, 3, padding=1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(width)
+        inplanes = width
+        for li, blocks in enumerate(cfg.vision_layers):
+            planes = width * 2**li
+            layer = []
+            for bi in range(blocks):
+                layer.append(Bottleneck(inplanes, planes, 2 if li > 0 and bi == 0 else 1,
+                                        cfg.dtype))
+                inplanes = planes * 4
+            setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
+        self.attnpool = AttentionPool2d(cfg.image_resolution // 32, width * 32,
+                                        width * 32 // 64, cfg.embed_dim, cfg.dtype)
+
+    def forward(self, images):
+        dt = self.cfg.dtype
+        x = images.permute(0, 3, 1, 2)  # NHWC -> NCHW
+        x = F.relu(self.bn1(_conv(x, self.conv1, dt)))
+        x = F.relu(self.bn2(_conv(x, self.conv2, dt)))
+        x = F.relu(self.bn3(_conv(x, self.conv3, dt)))
+        x = _avg_pool(x, 2)
+        for li in range(len(self.cfg.vision_layers)):
+            x = getattr(self, f"layer{li + 1}")(x)
+        return self.attnpool(x)
+
+
 class CLIPModel(nn.Module):
     """Both towers: `encode_image` and `encode_text`."""
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if not cfg.is_vit:
-            raise NotImplementedError(
-                f"CLIP {cfg.name}: the ModifiedResNet towers (RN50, RN101) are "
-                "a later slice of the PyTorch port"
-            )
         self.cfg = cfg
-        self.visual = VisionTransformer(cfg)
+        self.visual = VisionTransformer(cfg) if cfg.is_vit else ModifiedResNet(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, cfg.text_width))
         self.transformer = Transformer(cfg.text_width, cfg.text_layers, cfg.text_heads, cfg.dtype)

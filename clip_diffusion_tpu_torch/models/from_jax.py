@@ -1,13 +1,17 @@
 """Carry the JAX package's parameters into the port's modules.
 
-The JAX package keeps parameters as flax trees (`{"params": {...}}`, here
-nested dicts of numpy arrays).  These functions map every leaf onto the
+The JAX package keeps parameters as flax trees (`{"params": {...}}`, plus
+`{"batch_stats": {...}}` for the ResNet towers' BatchNorm running
+statistics; here nested dicts of numpy arrays).  A path under
+`batch_stats` is written with that collection name first; every other path
+is under `params`.  These functions map every leaf onto the
 port's `state_dict` keys, which follow the reference torch checkpoints:
 
 * conv kernel (kh, kw, I, O)         -> weight (O, I, kh, kw)
 * dense kernel (in, out)             -> weight (out, in)
 * CLIP `PatchEmbed` kernel (p, p, c, w) -> conv weight (w, c, p, p)
-* GroupNorm/LayerNorm scale, bias    -> weight, bias
+* GroupNorm/LayerNorm/BatchNorm scale, bias -> weight, bias
+* BatchNorm `batch_stats` mean, var  -> running_mean, running_var
 * `Embed.embedding`                  -> weight
 * CLIP `class_embedding`, `positional_embedding`, `proj`,
   `text_projection`                  -> the same array
@@ -104,12 +108,44 @@ def _clip_block(parts: List[str], leaf: str, prefix: Path) -> Tuple[Path, str]:
     raise KeyError(f"unmapped CLIP transformer key: {'.'.join(parts)}")
 
 
+def _batchnorm(leaf: str, prefix: Path) -> Tuple[Path, str]:
+    """BatchNorm weight/bias (params) and running statistics (batch_stats)."""
+    if leaf in ("running_mean", "running_var"):
+        return ("batch_stats",) + prefix + (leaf[len("running_"):],), "same"
+    name, kind = _leaf(leaf, "norm")
+    return prefix + (name,), kind
+
+
+def _resnet_rule(v: List[str], leaf: str) -> Tuple[Path, str]:
+    """`visual.*` keys of a ModifiedResNet tower."""
+    if v[0] == "attnpool":
+        if v[1] == "positional_embedding":
+            return ("visual", "attnpool", "positional_embedding"), "same"
+        name, kind = _leaf(leaf, "dense")
+        return ("visual", "attnpool", v[1], name), kind
+    if v[0].startswith("layer"):  # layerN.i.<sub>[.k].leaf
+        block = ("visual", f"{v[0]}_{v[1]}")
+        sub = v[2]
+        if sub == "downsample":
+            if v[3] == "0":
+                return block + ("downsample_conv", "kernel"), "conv"
+            return _batchnorm(leaf, block + ("downsample_bn",))
+        if sub.startswith("bn"):
+            return _batchnorm(leaf, block + (sub,))
+        return block + (sub, "kernel"), "conv"
+    if v[0].startswith("bn"):
+        return _batchnorm(leaf, ("visual", v[0]))
+    return ("visual", v[0], "kernel"), "conv"  # stem conv1-3
+
+
 def clip_rule(key: str) -> Tuple[Path, str]:
-    """Port CLIP (ViT) key -> (JAX path under "params", transform)."""
+    """Port CLIP key (ViT or ModifiedResNet) -> (JAX path, transform)."""
     parts = key.split(".")
     leaf = parts[-1]
     if parts[0] == "visual":
         v = parts[1:]
+        if v[0] in ("attnpool", "bn1", "bn2", "bn3", "conv2", "conv3") or v[0].startswith("layer"):
+            return _resnet_rule(v, leaf)
         if v[0] == "transformer":
             return _clip_block(v[1:], leaf, ("visual", "transformer"))
         if v[0] in ("class_embedding", "positional_embedding", "proj"):
@@ -131,6 +167,33 @@ def clip_rule(key: str) -> Tuple[Path, str]:
     raise KeyError(f"unmapped CLIP key: {key}")
 
 
+# aesthetic MLP: torch Sequential index -> flax layer name (Linear layers
+# at 0, 2, 4, 6, 7 with Dropouts between)
+_MLP_LAYER_MAP = {"0": "fc0", "2": "fc1", "4": "fc2", "6": "fc3", "7": "fc4"}
+
+
+def aesthetic_rule(key: str) -> Tuple[Path, str]:
+    """Port aesthetic head key (`linear.*` or `layers.N.*`) -> JAX path."""
+    parts = key.split(".")
+    layer = "linear" if parts[0] == "linear" else _MLP_LAYER_MAP[parts[1]]
+    name, kind = _leaf(parts[-1], "dense")
+    return (layer, name), kind
+
+
+# torchvision VGG16 `features` indices of the 13 convs, in order
+VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def lpips_rule(key: str) -> Tuple[Path, str]:
+    """Port LPIPS key (`net.sliceS.I.*`, `linN.model.1.weight`) -> JAX path."""
+    parts = key.split(".")
+    if parts[0] == "net":
+        conv = f"conv{VGG16_CONV_IDX.index(int(parts[2]))}"
+        name, kind = _leaf(parts[-1], "conv")
+        return ("vgg", conv, name), kind
+    return (parts[0], "kernel"), "conv"
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -144,8 +207,15 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     return flat
 
 
-def _params(tree: Mapping) -> Mapping:
-    return tree["params"] if "params" in tree else tree
+def _flat_collections(tree: Mapping) -> Dict[Path, np.ndarray]:
+    """Leaves of `params` by path, and of `batch_stats` by ("batch_stats",
+    path); a bare tree is taken as the params."""
+    if "params" not in tree:
+        return _flatten(tree)
+    flat = _flatten(tree["params"])
+    if "batch_stats" in tree:
+        flat.update(_flatten(tree["batch_stats"], ("batch_stats",)))
+    return flat
 
 
 def jax_layout(module: nn.Module, rule) -> List[Tuple[Path, tuple, str, str]]:
@@ -161,7 +231,7 @@ def jax_layout(module: nn.Module, rule) -> List[Tuple[Path, tuple, str, str]]:
 def to_state_dict(tree: Mapping, module: nn.Module, rule) -> Dict[str, torch.Tensor]:
     """JAX parameter tree -> state_dict for `module` (float32 numpy leaves
     keep their dtype; the caller casts)."""
-    flat = _flatten(_params(tree))
+    flat = _flat_collections(tree)
     sd = {}
     for path, shape, key, kind in jax_layout(module, rule):
         if path not in flat:
@@ -191,4 +261,12 @@ def load_unet(module: nn.Module, tree: Mapping) -> nn.Module:
 
 def load_clip(module: nn.Module, tree: Mapping) -> nn.Module:
     return load_into(module, tree, clip_rule)
+
+
+def load_aesthetic(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, aesthetic_rule)
+
+
+def load_lpips(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, lpips_rule)
 

@@ -36,7 +36,8 @@ class AugmentConfig:
     grayscale_p: float = 0.1
     jitter: float = 0.1  # brightness/contrast/saturation/hue strength
     # "shear": 3-shear decomposition of the rotation+translation into 1-D
-    # bilinear resamples, each a per-row banded matmul
+    # bilinear resamples, each a per-row banded matmul; "gather": direct
+    # 2-D bilinear sampling of the inverse map (four taps, zero fill)
     affine_impl: str = "shear"
 
 
@@ -144,6 +145,46 @@ def affine_shear(img, theta, ty, tx):
     return _affine_shear(img, theta, ty, tx)
 
 
+def _bilinear_sample(img, ys, xs):
+    """Sample (N, S, S, C) images at fractional source coordinates ys, xs
+    (N, S, S): four taps, zero fill outside.  Its backward is a scatter-add
+    (index_put with accumulate), whose float sum order on a GPU is not
+    fixed."""
+    n, h, w = img.shape[0], img.shape[1], img.shape[2]
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    wy = (ys - y0)[..., None]
+    wx = (xs - x0)[..., None]
+    y0i = y0.to(torch.int64)
+    x0i = x0.to(torch.int64)
+    batch = torch.arange(n, device=img.device).reshape(n, 1, 1)
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        vals = img[batch, yy.clamp(0, h - 1), xx.clamp(0, w - 1)]  # (N, S, S, C)
+        return torch.where(inside[..., None], vals, torch.zeros((), dtype=vals.dtype,
+                                                                device=vals.device))
+
+    top = tap(y0i, x0i) * (1 - wx) + tap(y0i, x0i + 1) * wx
+    bot = tap(y0i + 1, x0i) * (1 - wx) + tap(y0i + 1, x0i + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def affine_gather(img, theta, ty, tx):
+    """Rotation+translation about the center by direct bilinear sampling of
+    the inverse map src = [[cos, sin], [-sin, cos]] @ (p - c - t) + c.
+    img (N, S, S, C); theta, ty, tx (N,), the shear's draws."""
+    s = img.shape[1]
+    c = (s - 1) / 2.0
+    ii = torch.arange(s, dtype=torch.float32, device=img.device)
+    ys, xs = torch.meshgrid(ii, ii, indexing="ij")
+    cos = torch.cos(theta)[:, None, None]
+    sin = torch.sin(theta)[:, None, None]
+    yr = ys - c - ty[:, None, None]
+    xr = xs - c - tx[:, None, None]
+    return _bilinear_sample(img, cos * yr + sin * xr + c, -sin * yr + cos * xr + c)
+
+
 def _hue_rotate(img, theta):
     """Rotate chroma in YIQ space by theta radians (hue shift)."""
     r, g, b = img[..., 0], img[..., 1], img[..., 2]
@@ -174,15 +215,11 @@ def _color_jitter(img, factors):
 def augment_batch(images: torch.Tensor, draws: AugmentDraws,
                   cfg: AugmentConfig = AugmentConfig()) -> torch.Tensor:
     """Apply the stack to an (N, S, S, C) batch, slot i with draws[i]."""
-    if cfg.affine_impl != "shear":
-        raise NotImplementedError(
-            f"affine_impl={cfg.affine_impl!r}: only 'shear' is ported; the "
-            "'gather' warp is a later slice of the port"
-        )
+    affine = {"shear": affine_shear, "gather": affine_gather}[cfg.affine_impl]
     bcast = (slice(None), None, None, None)
     img = torch.where(draws.flip[bcast], images.flip(2), images)
     img = img + cfg.noise_std * draws.noise[:, 0].to(img.dtype)
-    img = affine_shear(img, draws.affine[:, 0], draws.affine[:, 1], draws.affine[:, 2])
+    img = affine(img, draws.affine[:, 0], draws.affine[:, 1], draws.affine[:, 2])
     img = img + cfg.noise_std * draws.noise[:, 1].to(img.dtype)
     img = torch.where(draws.gray[bcast], rgb_to_grayscale(img), img)
     img = img + cfg.noise_std * draws.noise[:, 2].to(img.dtype)

@@ -1,18 +1,22 @@
 """The CLIP-guided diffusion pipeline, eager PyTorch.
 
-Counterpart of `clip_diffusion_tpu.pipeline.guided`.  Each DDIM step:
+Counterpart of `clip_diffusion_tpu.pipeline.guided`.  Each step:
 
 1. one UNet forward at (x, t), shared by the sampler and the guidance loss;
 2. the mixed prediction `denoised = pred_x0 * s + x * (1 - s)` with
    s = sqrt(1 - alpha_bar_t) is cut into overview/inner cutouts (shared by
    same-resolution perceptors), augmented and scored by every CLIP tower
-   against the prompt embeddings (squared spherical distance), plus the TV
-   and range losses on `denoised`;
+   against the prompt embeddings (squared spherical distance) and, where a
+   perceptor has one, by its aesthetic head; plus the TV and range losses
+   on `denoised` and, with an init image, LPIPS and MS-SSIM against it;
 3. the gradient of that loss with respect to x alone
    (`torch.autograd.grad`; every parameter has requires_grad=False), then
    the NaN guard and the RMS clamp;
 4. dynamic thresholding of pred_x0 on the sampler path only (the loss saw
-   the unthresholded mix), and the conditioned DDIM update.
+   the unthresholded mix), and the conditioned DDIM or PLMS update.
+
+With an init image the trajectory starts from it diffused to the first
+executed step (`skip_timesteps` steps are skipped).
 
 The CLIP towers run in chunks of `clip_cut_chunk` cuts along the cut axis.
 Each chunk's backward runs as soon as its loss is known, giving the
@@ -41,8 +45,13 @@ from clip_diffusion_tpu_torch.diffusion.sampling import (
     condition_eps,
     ddim_step,
     dynamic_threshold,
+    init_history,
+    plms_eps,
+    plms_step,
     predict_eps_from_xstart,
     predict_xstart_from_eps,
+    push_history,
+    q_sample,
     schedule_tables,
 )
 from clip_diffusion_tpu_torch.diffusion.schedule import NoiseSchedule
@@ -53,8 +62,10 @@ from clip_diffusion_tpu_torch.guidance.cutouts import (
     make_cutouts_batch,
 )
 from clip_diffusion_tpu_torch.guidance.losses import (
+    l2_normalize,
     rgb_range_loss,
     square_spherical_distance_loss,
+    structural_dissimilarity_loss,
     total_variational_loss,
 )
 from clip_diffusion_tpu_torch.models.clip.model import clip_normalize
@@ -73,6 +84,7 @@ class Perceptor:
     input_resolution: int
     text_embeddings: torch.Tensor
     text_weights: torch.Tensor
+    aesthetic_fn: Optional[Callable] = None  # L2-normalized (N, D) -> (N, 1)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -83,6 +95,8 @@ class GuidedPipeline:
     sampler: SamplerConfig
     schedule: NoiseSchedule
     device: torch.device
+    lpips_fn: Optional[Callable] = None  # (x, y) NHWC in [-1, 1] -> (B,)
+    use_init_losses: bool = False  # LPIPS/MS-SSIM terms against the init image
 
     def cutout_spec(self, resolution: int) -> CutoutSpec:
         cs = self.config.cutout_schedules
@@ -136,8 +150,8 @@ def _prompt_distance(embs, perc: Perceptor):
 
 
 def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
-    """Gradient of the members' CLIP loss with respect to the normalized
-    cuts (B, N, S, S, 3), one tower chunk at a time."""
+    """Gradient of the members' CLIP and aesthetic losses with respect to
+    the normalized cuts (B, N, S, S, 3), one tower chunk at a time."""
     cfg = pipe.config
     b, n = normed.shape[:2]
     tail = normed.shape[2:]
@@ -148,16 +162,21 @@ def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
         for i in range(0, n, chunk):
             leaf = normed[:, i:i + chunk].detach().requires_grad_(True)
             embs = perc.embed_image(leaf.reshape((-1,) + tail)).reshape(b, leaf.shape[1], -1)
-            loss = cfg.clip_guidance_scale * torch.sum(
-                weights[:, i:i + chunk] * _prompt_distance(embs, perc)
-            )
+            w = weights[:, i:i + chunk]
+            loss = cfg.clip_guidance_scale * torch.sum(w * _prompt_distance(embs, perc))
+            if perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
+                scores = perc.aesthetic_fn(l2_normalize(embs, dim=-1))[..., 0]
+                loss = loss - cfg.aesthetic_scale * torch.sum(w * scores)
             (g,) = torch.autograd.grad(loss, leaf)
             grad[:, i:i + chunk] += g
     return grad.to(normed.dtype)
 
 
-def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws):
-    """d(loss)/dx at respaced step `step` -> (grad, pred_x0), both (B,H,W,3)."""
+def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
+                      init_image: Optional[torch.Tensor] = None):
+    """d(loss)/dx at respaced step `step` -> (grad, pred_x0), both (B,H,W,3).
+    `init_image` (1, H, W, 3) in [-1, 1] is the target of the LPIPS and
+    MS-SSIM terms when `pipe.use_init_losses` is on."""
     cfg = pipe.config
     b = x.shape[0]
     with torch.enable_grad():
@@ -175,6 +194,13 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws):
         if cfg.range_scale > 0:
             term = cfg.range_scale * torch.sum(rgb_range_loss(denoised))
             image_loss = term if image_loss is None else image_loss + term
+        if pipe.use_init_losses:
+            if pipe.lpips_fn is not None and cfg.LPIPS_scale > 0:
+                term = cfg.LPIPS_scale * torch.sum(pipe.lpips_fn(denoised, init_image))
+                image_loss = term if image_loss is None else image_loss + term
+            if cfg.MS_SSIM_scale > 0:
+                term = cfg.MS_SSIM_scale * structural_dissimilarity_loss(denoised, init_image)
+                image_loss = term if image_loss is None else image_loss + term
         if image_loss is not None:
             outputs.append(image_loss)
             out_grads.append(torch.ones_like(image_loss))
@@ -211,10 +237,21 @@ def clamp_guidance_grad(grad, threshold: float):
     return grad * torch.clamp(mag, max=threshold) / torch.clamp_min(mag, 1e-12)
 
 
+@dataclasses.dataclass
+class PLMSHistory:
+    """The PLMS sampler's carry: earlier conditioned eps, newest first
+    (MAX_PLMS_ORDER - 1, B, H, W, 3), and how many are valid."""
+
+    eps: torch.Tensor
+    count: int = 0
+
+
 def apply_sampler_update(sampler: SamplerConfig, tables, x, step: int,
-                         pred_x0_raw, guidance, noise: Optional[torch.Tensor]):
+                         pred_x0_raw, guidance, noise: Optional[torch.Tensor],
+                         history: Optional[PLMSHistory] = None):
     """Threshold pred_x0, re-derive eps, condition on the guidance gradient,
-    then the DDIM step -> (x_next, pred_x0_final)."""
+    then the DDIM step, or the PLMS step (which draws no noise and advances
+    `history` in place) -> (x_next, pred_x0_final)."""
     pct = sampler.dynamic_thresholding_percentile
     if sampler.thresholding_method == "histogram":
         pred_x0_thr = dynamic_threshold_fast(pred_x0_raw, pct)
@@ -225,17 +262,29 @@ def apply_sampler_update(sampler: SamplerConfig, tables, x, step: int,
     eps_thr = predict_eps_from_xstart(x, pred_x0_thr, tables, step)
     eps_cond = condition_eps(eps_thr, guidance, tables, step)
     pred_x0_final = predict_xstart_from_eps(x, eps_cond, tables, step)
-    x_next = ddim_step(x, eps_cond, pred_x0_final, tables, step, sampler.eta, noise)
+    if sampler.mode == "plms":
+        eps_prime = plms_eps(eps_cond, history.eps, history.count, sampler.order)
+        x_next = plms_step(x, eps_prime, tables, step)
+        history.eps = push_history(eps_cond, history.eps)
+        history.count += 1
+    elif sampler.mode == "ddim":
+        x_next = ddim_step(x, eps_cond, pred_x0_final, tables, step, sampler.eta, noise)
+    else:
+        raise ValueError(f"unknown sample mode {sampler.mode!r}")
     return x_next, pred_x0_final
 
 
-def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws):
-    """One full guided DDIM step -> (x_next, pred_x0_final)."""
-    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws)
+def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws,
+                init_image: Optional[torch.Tensor] = None,
+                history: Optional[PLMSHistory] = None):
+    """One full guided step -> (x_next, pred_x0_final); PLMS needs
+    `history`, which it advances."""
+    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image)
     guidance = clamp_guidance_grad(-grad, pipe.config.grad_threshold)
-    noise = draws.step_noise(step, x.shape) if step > 0 else None
+    ddim = pipe.sampler.mode == "ddim"
+    noise = draws.step_noise(step, x.shape) if ddim and step > 0 else None
     return apply_sampler_update(pipe.sampler, tables, x, step, pred_x0_raw,
-                                guidance, noise)
+                                guidance, noise, history)
 
 
 def frame_table(n_steps: int, num_frames: int):
@@ -251,29 +300,32 @@ def guided_sample(
     pipe: GuidedPipeline,
     draws,
     batch_size: int = 1,
+    init_image: Optional[torch.Tensor] = None,
     num_frames: int = 6,
     progress_callback: Optional[Callable] = None,
     progress_every: int = 5,
 ):
     """Run the full guided trajectory -> (final_images, frames): the final
     pred_x0 in [-1, 1] NHWC and `num_frames` evenly spaced pred_x0 frames
-    (F, B, H, W, 3).  `progress_callback(position, pred_x0)` fires every
-    `progress_every` positions."""
+    (F, B, H, W, 3).  `init_image` (1, H, W, 3) in [-1, 1]: the trajectory
+    starts from it diffused to the first executed step, with noise from
+    `draws.initial_noise`.  `progress_callback(position, pred_x0)` fires
+    every `progress_every` positions."""
     cfg, sampler = pipe.config, pipe.sampler
-    if sampler.mode != "ddim":
-        raise NotImplementedError(
-            f"sample mode {sampler.mode!r}: PLMS end to end is a later slice of the port"
-        )
     shape = (batch_size, cfg.height, cfg.width, 3)
     tables = schedule_tables(pipe.schedule, pipe.device)
     start = pipe.schedule.num_steps - sampler.skip_timesteps - 1
     n_steps = start + 1
     table, n_frames = frame_table(n_steps, num_frames)
+    history = PLMSHistory(init_history(shape, pipe.device)) if sampler.mode == "plms" else None
     with torch.no_grad():
         x = draws.initial_noise(shape).to(torch.float32)
+        if init_image is not None:
+            init_image = init_image.to(device=pipe.device, dtype=torch.float32)
+            x = q_sample(init_image.expand(shape), tables, start, x)
         frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
         for pos, step in enumerate(range(start, -1, -1)):
-            x, pred_x0 = guided_step(pipe, tables, x, step, draws)
+            x, pred_x0 = guided_step(pipe, tables, x, step, draws, init_image, history)
             if table[pos] >= 0:
                 frames[table[pos]] = pred_x0
             if progress_callback is not None and pos % progress_every == 0:

@@ -5,7 +5,6 @@ import gzip
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from clip_diffusion_tpu.models.clip import model as jm
@@ -130,5 +129,27 @@ def test_zoo_host_init_equals_jax_zoo():
 
 
 def test_resnet_towers_raise():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tm.CLIPModel(tm.CLIP_PRESETS["RN101"])
+    """The ModifiedResNet presets no longer raise: RN50 and RN101 build (on
+    the meta device) with the OpenAI checkpoint names, and the tiny RN
+    tower's embedding matches JAX's in float32 (atol 1e-4; the bf16 case
+    and the full-width layout are in tests/test_torch_resnet.py)."""
+    torch.set_num_threads(1)
+    for name, blocks in (("RN50", 6), ("RN101", 23)):
+        with torch.device("meta"):
+            model = tm.CLIPModel(tm.CLIP_PRESETS[name])
+        keys = model.state_dict().keys()
+        assert f"visual.layer3.{blocks - 1}.bn3.running_var" in keys
+        assert "visual.layer1.0.downsample.0.weight" in keys
+        assert "visual.attnpool.c_proj.bias" in keys
+    jmodel = jm.CLIPModel(jm.tiny_clip_config(resnet=True))
+    params = _host_init(lambda: jmodel.init(jax.random.PRNGKey(0), jnp.ones((1, 64, 64, 3)),
+                                            jnp.ones((1, 77), jnp.int32)),
+                        param_dtype=jnp.float32, seed=3)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    tmodel = from_jax.load_clip(tm.CLIPModel(tm.tiny_clip_config(resnet=True)), params)
+    imgs = np.random.default_rng(4).uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)
+    jn = jm.clip_normalize(jnp.asarray(imgs))
+    ref = np.asarray(jmodel.apply(params, jn, method=jm.CLIPModel.encode_image))
+    with torch.no_grad():
+        got = tmodel.encode_image(tm.clip_normalize(torch.from_numpy(imgs))).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: it imports neither JAX nor the JAX
-package, so a machine with a GPU and no JAX runs it with
+"""The port's CUDA kernel, and the ops whose GPU sums run in no fixed
+order, on the card: it imports neither JAX nor the JAX package, so a
+machine with a GPU and no JAX runs it with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from clip_diffusion_tpu_torch.ops.augment import affine_gather
 from clip_diffusion_tpu_torch.ops.quantile import (
     dynamic_threshold_fast,
     histogram_abs_quantile,
@@ -102,3 +104,34 @@ def test_threshold_launches_kernel_and_never_falls_back(cuda):
             kernel(x.reshape(1, -1)[:, ::2], 0.5)
         with pytest.raises(TypeError, match="dtype"):
             kernel(x.reshape(1, -1).double(), 0.5)
+
+
+@pytest.mark.cuda
+def test_default_canvas_row_matches_plain(cuda):
+    """Mode B at the default 768x512 canvas's row, (1, 1179648) float32,
+    the threshold of every step of the default request: bit for bit."""
+    x = _rows(np.random.default_rng(7), 1, 1179648, torch.float32, cuda)
+    for q in (0.5, 0.995, 1.0):
+        _check_one_launch("histogram_abs_quantile", x, q)
+
+
+@pytest.mark.cuda
+def test_affine_gather_on_card_matches_cpu(cuda):
+    """The "gather" warp and its gradient on the card against the CPU on the
+    same inputs, at the cutouts' 224x224: the forward is the same four-tap
+    arithmetic (atol 1e-6), the backward a scatter-add whose float sum order
+    on the GPU is not fixed (atol 1e-5 on [0, 1] images)."""
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.uniform(0, 1, (8, 224, 224, 3)).astype(np.float32))
+    cot = torch.from_numpy(rng.normal(0, 1, (8, 224, 224, 3)).astype(np.float32))
+    theta = torch.from_numpy(rng.uniform(-0.17, 0.17, 8).astype(np.float32))
+    ty, tx = (torch.from_numpy(rng.uniform(-11.2, 11.2, 8).astype(np.float32)) for _ in range(2))
+    outs = {}
+    for dev in ("cpu", cuda):
+        x = img.to(dev).requires_grad_(True)
+        out = affine_gather(x, theta.to(dev), ty.to(dev), tx.to(dev))
+        (grad,) = torch.autograd.grad(out, x, cot.to(dev))
+        outs[str(dev)] = (out.detach().cpu(), grad.cpu())
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = outs["cpu"], outs[str(cuda)]
+    torch.testing.assert_close(o_gpu, o_cpu, rtol=0, atol=1e-6)
+    torch.testing.assert_close(g_gpu, g_cpu, rtol=0, atol=1e-5)

@@ -205,3 +205,41 @@ def test_torch_draws_shapes():
     assert d.aug.affine.shape == (2, 3, 6, 3) and d.aug.jitter.shape == (2, 3, 6, 4)
     assert d.aug.flip.dtype == torch.bool
     assert float(d.aug.affine[..., 0].abs().max()) <= np.deg2rad(10.0)
+
+
+def test_affine_gather_matches_with_jax_draws():
+    """The "gather" warp (inverse map, four bilinear taps, zero fill) with
+    the JAX package's own (angle, ty, tx) draws, against JAX's gather (never
+    against the shear), and its gradient (a scatter-add): f32 atol 1e-5."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 1, (3, 20, 20, 3)).astype(np.float32)
+    cot = rng.normal(0, 1, img.shape).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(9), 3)
+    theta, ty, tx, jout, jgrad = [], [], [], [], []
+    for i, key in enumerate(keys):
+        k1, k2, k3 = jax.random.split(key, 3)
+        theta.append(jax.random.uniform(k1, (), minval=-10.0, maxval=10.0) * (jnp.pi / 180.0))
+        ty.append(jax.random.uniform(k2, (), minval=-1.0, maxval=1.0))
+        tx.append(jax.random.uniform(k3, (), minval=-1.0, maxval=1.0))
+
+        def warp(im, key=key):
+            return jaug._random_affine(im, key, 10.0, 0.05, impl="gather")
+
+        out, vjp = jax.vjp(warp, jnp.asarray(img[i]))
+        jout.append(np.asarray(out))
+        jgrad.append(np.asarray(vjp(jnp.asarray(cot[i], out.dtype))[0]))
+    x = _t(img).requires_grad_(True)
+    got = taug.affine_gather(x, _t(theta), _t(ty), _t(tx))
+    (grad,) = torch.autograd.grad(got, x, _t(cot).to(got.dtype))
+    np.testing.assert_allclose(got.detach().numpy(), np.stack(jout), atol=1e-5)
+    np.testing.assert_allclose(grad.numpy(), np.stack(jgrad), atol=1e-5)
+    # the stack takes the gather warp by its config, with the same draws
+    draws = taug.AugmentDraws(
+        flip=torch.zeros(3, dtype=torch.bool), noise=torch.zeros((3, 3, 20, 20, 3)),
+        affine=torch.stack([_t(theta), _t(ty), _t(tx)], dim=1),
+        gray=torch.zeros(3, dtype=torch.bool),
+        jitter=torch.tensor([[1.0, 1.0, 1.0, 0.0]] * 3, dtype=torch.float64))
+    stacked = taug.augment_batch(_t(img), draws, taug.AugmentConfig(affine_impl="gather"))
+    want = taug._color_jitter(_t(np.stack(jout)), draws.jitter)  # the neutral jitter's YIQ trip
+    np.testing.assert_allclose(stacked.numpy(), want.numpy(), atol=1e-5)
