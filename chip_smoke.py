@@ -30,11 +30,29 @@ Phases, each announced on its own line; any failure exits non-zero:
    its default scale, at 768x512;
 9. profile: two steps of each of the three paths timed, then run under
    torch.profiler: device time by kernel class and by direction, the
-   device's idle share, and each tower's device time over the step's cuts.
+   device's idle share, and each tower's device time over the step's cuts;
+10. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
+    RRDBNet x4) on the card against the same stack on the CPU, same weights
+    and draws: a 5-step CFG DDIM txt2img and a 6-step PLMS inpainting, each
+    decoded and upscaled x4;
+11. latent zoo: the full-width LDM UNet (bfloat16), VQ-f8 (float32) and
+    BERT (bfloat16) as `sample.default_latent_stack` builds them, and
+    Real-ESRGAN x4 (float32), built once, with their parameter counts;
+12. latent request: `latent_diffusion_sample()` with no model arguments
+    (256x256, CFG DDIM, 50 steps, eta 0, guidance 5, 3 iterations x 3
+    images) and the ESRGAN x4 upscaler: 150 finite UNet forwards at batch
+    6, 9 PNGs, the grid and 9 upscales at 1024x1024;
+13. inpainting path: an init PNG and a mask PNG made here from seeded
+    arrays, PLMS, 20 steps, 1 iteration x 2 images: the kept region's final
+    latent must stay nearer the init latent than the free region's;
+14. latent profile: two CFG steps of the request timed, then run under
+    torch.profiler (device ms per step, idle share, device time by kernel
+    class, achieved FLOP/s), the VQ decode's device time, and one ESRGAN x4
+    call per image, whole and tiled.
 
 On every path the kernel launch counts are zeroed just before it runs and
-read just after: mode B of the quantile kernel once per executed step, mode
-A never.
+read just after: on the guided paths mode B of the quantile kernel once per
+executed step, mode A never; on the latent paths neither mode.
 
 Then one JSON line {"kernels": [...]}, the nvidia-smi line again, and as
 the last line {"ok": true, "device": {...}}.  TF32 is off throughout, so
@@ -64,6 +82,7 @@ from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig
 from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.aesthetic import LinearAestheticPredictor
 from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_config
+from clip_diffusion_tpu_torch.models.esrgan import upscale
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.ops import kernels
 from clip_diffusion_tpu_torch.ops import quantile as quantile_ops
@@ -75,9 +94,22 @@ from clip_diffusion_tpu_torch.ops.quantile import (
 )
 from clip_diffusion_tpu_torch.pipeline import guided as guided_mod
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
-from clip_diffusion_tpu_torch.sample import guided_diffusion_sample
+from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
+from clip_diffusion_tpu_torch.sample import (
+    default_latent_stack,
+    guided_diffusion_sample,
+    latent_diffusion_sample,
+)
+from clip_diffusion_tpu_torch.utils.image_io import (
+    load_image,
+    load_mask,
+    normalize_image_neg_one_to_one,
+)
 from clip_diffusion_tpu_torch.zoo import (
     ZooModels,
+    build_esrgan,
+    build_latent_models,
+    build_latent_pipeline,
     build_lpips,
     build_models,
     build_pipeline,
@@ -93,10 +125,13 @@ DEFAULT_ROW = (1, 1179648)  # ... and of the default 768x512 canvas
 QUANTILE = 0.995  # the main path's dynamic_thresholding_percentile
 PERCEPTORS = ("ViT-B/32", "ViT-B/16", "ViT-L/14")  # the 512x512 main path's
 PROMPT = "A lighthouse on a cliff at golden hour, oil painting."
+# parameter counts of the full-width latent stack (the JAX package's eval_shape)
+LATENT_PARAMS = {"LDM UNet": 872300484, "VQ-f8": 67717295, "BERT": 542895360,
+                 "RRDBNet x4": 16697987}
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+def phase(name: str, t_start: float) -> None:
+    print(f"== {name} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -264,6 +299,9 @@ class _MovedDraws(TorchDraws):
     def step_noise(self, step, shape):
         return super().step_noise(step, shape).to(self.target)
 
+    def inpaint_noise(self, step, shape):
+        return super().inpaint_noise(step, shape).to(self.target)
+
     def cutouts(self, *args):
         d = super().cutouts(*args)
         d.crop = d.crop.to(self.target)
@@ -352,16 +390,22 @@ class _TimingUploader:
         return "file://" + os.path.abspath(path)
 
 
+def _param_count(module) -> int:
+    return sum(p.numel() for p in module.parameters())
+
+
+def _zero_launches() -> None:
+    histogram_quantile.launches = 0
+    histogram_abs_quantile.launches = 0
+
+
 def build_zoo(dev) -> ZooModels:
     """Every full-width model the paths use, built once."""
     t0 = time.perf_counter()
     zoo = build_models(Config(), image_size=512, with_aesthetic=True, with_lpips=True,
                        device=dev)
     torch.cuda.synchronize()
-
-    def count(m):
-        return sum(p.numel() for p in m.parameters())
-
+    count = _param_count
     print(f"models built in {time.perf_counter() - t0:.1f} s: UNet {count(zoo.unet) / 1e6:.1f}M "
           f"(bf16, channel_mult {zoo.unet.config.channel_mult}), "
           + ", ".join(f"{k} {count(v) / 1e6:.1f}M" for k, v in zoo.clips.items())
@@ -389,8 +433,7 @@ def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
         lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
     uploader = _TimingUploader()
     torch.cuda.reset_peak_memory_stats()
-    histogram_quantile.launches = 0
-    histogram_abs_quantile.launches = 0
+    _zero_launches()
     t0 = time.perf_counter()
     try:
         result = guided_diffusion_sample(prompt=PROMPT, seed=1234, models=models,
@@ -585,6 +628,277 @@ def profile_steps(dev, label: str, models, config, n_steps: int, out_dir: str,
               f"profiled device ms/step", flush=True)
 
 
+def _check_no_launches(label: str) -> None:
+    """The latent paths reach no port kernel: both quantile modes at 0."""
+    launches = {"histogram_quantile": histogram_quantile.launches,
+                "histogram_abs_quantile": histogram_abs_quantile.launches}
+    if any(launches.values()):
+        raise AssertionError(f"{label}: quantile kernel launched {launches}")
+    print(f"{label}: quantile kernel launches {launches}", flush=True)
+
+
+def check_latent_reference(dev) -> None:
+    """The tiny float32 latent stack (f2 VQ, 32x32 images, 16x16 latents)
+    on the card against the CPU on the same weights and draws: a 5-step CFG
+    DDIM txt2img and a 6-step PLMS inpainting of the top half of an
+    encoded init image, each decoded and upscaled x4.  Differences come from
+    float32 sum order (cuDNN and cuBLAS against the CPU kernels): atol 1e-3
+    on [0, 1] images."""
+    coarse = np.random.default_rng(6).uniform(-1, 1, (1, 4, 4, 3))
+    init = torch.from_numpy(np.repeat(np.repeat(coarse, 8, 1), 8, 2).astype(np.float32))
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        pipe, text_encode = build_latent_pipeline(
+            build_latent_models(tiny=True, param_dtype=torch.float32, device=device))
+        esrgan = build_esrgan(tiny=True, device=device)
+        ctx_c, ctx_u = text_encode([PROMPT] * 2), text_encode([""] * 2)
+        x0 = img2img_start(pipe, init.to(device)).repeat(2, 1, 1, 1)
+        mask = torch.zeros((2, 16, 16, 1), device=device)
+        mask[:, :8] = 1.0
+        txt = decode_latents(pipe, latent_sample(
+            pipe, _MovedDraws(7, device), ctx_c, ctx_u, batch_size=2, height=32, width=32,
+            steps=5))
+        inp = decode_latents(pipe, latent_sample(
+            pipe, _MovedDraws(8, device), ctx_c, ctx_u, batch_size=2, height=32, width=32,
+            steps=6, mode="plms", x0_latent=x0, mask=mask))
+        runs.append({"txt2img": txt, "txt2img x4": upscale(esrgan, txt),
+                     "inpainting": inp, "inpainting x4": upscale(esrgan, inp)})
+    for name, cpu in runs[0].items():
+        gpu = runs[1][name].float().cpu()
+        err = float((cpu - gpu).abs().max())
+        if not (torch.isfinite(gpu).all() and err <= 1e-3):
+            raise AssertionError(f"tiny latent {name}: GPU vs CPU max |diff| {err:.3e}")
+        print(f"tiny latent {name} GPU vs CPU: {tuple(gpu.shape)}, max |diff| {err:.3e}",
+              flush=True)
+
+
+def build_latent_zoo(dev):
+    """The default latent stack, as `latent_diffusion_sample` builds it with
+    no model arguments, and ESRGAN x4; checks the parameter counts."""
+    t0 = time.perf_counter()
+    pipe, text_encode = default_latent_stack(dev)
+    esrgan = build_esrgan(4, device=dev)
+    torch.cuda.synchronize()
+    counts = {"LDM UNet": _param_count(pipe.unet), "VQ-f8": _param_count(pipe.decode.__self__),
+              "BERT": _param_count(text_encode.bert), "RRDBNet x4": _param_count(esrgan)}
+    if counts != LATENT_PARAMS:
+        raise AssertionError(f"latent parameter counts {counts}, expected {LATENT_PARAMS}")
+    print(f"latent models built in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{k} {v:,}" for k, v in counts.items())
+          + " parameters (UNet and BERT bf16, VQ and RRDBNet f32)", flush=True)
+    return pipe, text_encode, esrgan
+
+
+def _png(path):
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32)
+
+
+def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
+    """`latent_diffusion_sample()` at its defaults, with no model arguments
+    (the stack cached by `build_latent_zoo`) and the ESRGAN x4 upscaler.
+    Hooks (no sync on the UNet) record every UNet forward's batch and
+    finiteness and its host time; the VQ decoder's `post_quant_conv` and
+    `decoder` and the upscaler synchronize around themselves, so each
+    iteration's sampling time runs from its first UNet forward to its
+    decode, which waits for the device."""
+    vq = pipe.decode.__self__
+    forwards, finite, batches = [], [], []
+    dec = {"start": [], "end": []}
+    up_s = []
+
+    def on_unet(mod, inp, out):
+        finite.append(torch.isfinite(out).all())
+        batches.append(out.shape[0])
+
+    def mark(key):
+        def hook(*args):
+            torch.cuda.synchronize()
+            dec[key].append(time.perf_counter())
+        return hook
+
+    def timed_upscale(images01):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = upscale(esrgan, images01)
+        torch.cuda.synchronize()
+        up_s.append(time.perf_counter() - t0)
+        return out
+
+    hooks = [pipe.unet.register_forward_pre_hook(lambda *a: forwards.append(time.perf_counter())),
+             pipe.unet.register_forward_hook(on_unet),
+             vq.post_quant_conv.register_forward_pre_hook(mark("start")),
+             vq.decoder.register_forward_hook(mark("end"))]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        result = latent_diffusion_sample(seed=1234, upscaler=timed_upscale, output_dir=out_dir,
+                                         device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    _check_no_launches("latent request")
+
+    steps, iters, images = 50, 3, 9
+    if len(finite) != steps * iters or set(batches) != {6} or not all(bool(f) for f in finite):
+        raise AssertionError(f"latent request: {len(finite)} UNet forwards at batches "
+                             f"{set(batches)}, finite {sum(bool(f) for f in finite)}")
+    paths = result["images"]
+    stds = [float(_png(p).std()) for p in paths]
+    shapes = {_png(p).shape for p in paths}
+    if len(paths) != images or shapes != {(256, 256, 3)} or min(stds) == 0:
+        raise AssertionError(f"latent request: {len(paths)} images, shapes {shapes}, stds {stds}")
+    grid = _png(result["grid_url"].replace("file://", ""))
+    sr = [os.path.join(os.path.dirname(p), "sr", os.path.basename(p)) for p in paths]
+    sr_shapes = {_png(p).shape for p in sr}
+    if sr_shapes != {(1024, 1024, 3)}:
+        raise AssertionError(f"latent request: SR shapes {sr_shapes}")
+    sample_s = [dec["start"][k] - forwards[k * steps] for k in range(iters)]
+    decode_s = [e - b for b, e in zip(dec["start"], dec["end"])]
+    step_ms = min(sample_s) / steps * 1e3
+    print(f"latent request: {iters} iterations x 3 images, {len(finite)} UNet forwards at batch "
+          f"6, all finite; wall {wall:.2f} s; sampling per iteration "
+          + ", ".join(f"{x:.3f}" for x in sample_s) + f" s (steady {step_ms:.2f} ms/step); "
+          f"VQ decode of 3 images " + ", ".join(f"{x * 1e3:.1f}" for x in decode_s)
+          + f" ms; ESRGAN x4 per image min {min(up_s) * 1e3:.1f} ms, mean "
+          f"{np.mean(up_s) * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; grid "
+          f"{grid.shape}; {len(sr)} SR PNGs at 1024x1024; image stds "
+          + ", ".join(f"{x:.1f}" for x in stds), flush=True)
+    return {"wall_s": wall, "step_ms": step_ms, "peak_bytes": peak}
+
+
+def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> None:
+    """`latent_diffusion_sample` inpainting: an init PNG (seeded 8x8 blocks)
+    and a mask PNG (white top half: keep), PLMS, 20 steps, 1 iteration x 2
+    images, on the zoo's stack with its decode wrapped to keep the final
+    latents.  The kept region must end nearer the init latent than the free
+    region (mean |z - z_init|)."""
+    os.makedirs(out_dir, exist_ok=True)
+    coarse = np.random.default_rng(12).uniform(0, 255, (8, 8, 3))
+    init_png = os.path.join(out_dir, "init.png")
+    Image.fromarray(np.repeat(np.repeat(coarse, 32, 0), 32, 1).astype(np.uint8)).save(init_png)
+    mask_png = os.path.join(out_dir, "mask.png")
+    mask_arr = np.zeros((256, 256), np.uint8)
+    mask_arr[:128] = 255
+    Image.fromarray(mask_arr, "L").save(mask_png)
+
+    finals = []
+
+    def keep_latents(z):
+        finals.append(z.clone())
+        return pipe.decode(z)
+
+    finite = []
+    hook = pipe.unet.register_forward_hook(
+        lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        result = latent_diffusion_sample(
+            prompt=PROMPT, seed=77, init_image=init_png, mask_image=mask_png,
+            sample_mode="plms", diffusion_steps=20, num_iterations=1, num_batches=2,
+            pipe=dataclasses.replace(pipe, decode=keep_latents), text_encode=text_encode,
+            output_dir=out_dir, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    _check_no_launches("inpainting path")
+    if len(finite) != 20 or not all(bool(f) for f in finite) or len(result["images"]) != 2:
+        raise AssertionError(f"inpainting path: {len(finite)} forwards, "
+                             f"{len(result['images'])} images")
+    init = normalize_image_neg_one_to_one(load_image(init_png, (256, 256)))
+    z_init = img2img_start(pipe, torch.from_numpy(init)[None].to(dev))[0]
+    mask = torch.from_numpy(load_mask(mask_png, (32, 32))).to(dev)
+    dist = (finals[0] - z_init).abs().mean(dim=-1, keepdim=True)  # (2, 32, 32, 1)
+    kept = float((dist * mask).sum() / (mask.sum() * 2))
+    free = float((dist * (1 - mask)).sum() / ((1 - mask).sum() * 2))
+    if not kept < free:
+        raise AssertionError(f"inpainting path: kept region {kept:.4f} not nearer the init "
+                             f"latent than the free region {free:.4f}")
+    print(f"inpainting path: PLMS 20 steps x 2 images in {wall:.2f} s; mean |z - z_init| "
+          f"kept {kept:.4f}, free {free:.4f} (mask keeps {int(mask.sum())} of 1024 latent "
+          f"pixels); images {result['images']}", flush=True)
+
+
+def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
+    """Two CFG DDIM steps of the latent request (3 images, UNet batch 6)
+    timed after a warm-up, then under torch.profiler: device ms per step,
+    idle share, device time by kernel class, top kernels, and the UNet
+    forward's FLOPs (torch's FlopCounterMode: matmuls and convs) over its
+    device time.  Then the VQ decode of the 3 latents, the BERT at batch 3
+    and one ESRGAN x4 call on one 256x256 image (whole and in 128 px
+    tiles), each alone under the profiler, with their FLOPs counted the
+    same way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    ctx_c, ctx_u = text_encode([PROMPT] * 3), text_encode([""] * 3)
+
+    def two_steps():
+        z = latent_sample(pipe, TorchDraws(5, dev), ctx_c, ctx_u, batch_size=3, steps=2)
+        torch.cuda.synchronize()
+        return z
+
+    z = two_steps()
+    t0 = time.perf_counter()
+    two_steps()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        two_steps()
+    by_class, by_name = {}, {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            ms = evt.time_range.elapsed_us() / 1e3 / 2
+            cls = _kernel_class(evt.name)
+            by_class[cls] = by_class.get(cls, 0.0) + ms
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+    device_ms = sum(by_class.values())
+
+    def count_flops(fn) -> int:
+        with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+            fn()
+        return counter.get_total_flops()
+
+    flops = count_flops(lambda: pipe.unet(torch.zeros((6, 32, 32, 4), device=dev),
+                                          torch.full((6,), 981.0, device=dev),
+                                          torch.cat([ctx_u, ctx_c])))
+    print(f"latent profile 256x256 (3 images, UNet batch 6): wall {wall_ms:.2f} ms/step, device "
+          f"{device_ms:.2f} ms/step, idle share {1 - device_ms / wall_ms:.3f}; UNet forward "
+          f"{flops / 1e12:.3f} TFLOP (matmuls and convs), {flops / device_ms / 1e9:.1f} "
+          f"TFLOP/s over the step's device time", flush=True)
+    print("[latent] device ms/step by kernel class: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])), flush=True)
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {ms:8.3f} ms/step  {name[:110]}", flush=True)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_latent.txt"), "w") as f:
+        f.write(prof.key_averages().table(sort_by="device_time_total", row_limit=60))
+
+    dec_us, dec_ops = device_us_per_call(lambda: decode_latents(pipe, z), "", calls=3)
+    bert_us, _ = device_us_per_call(lambda: text_encode([PROMPT] * 3), "", calls=3)
+    img = decode_latents(pipe, z)[:1].contiguous()
+    whole_us, _ = device_us_per_call(lambda: upscale(esrgan, img), "", calls=3)
+    tiled_us, _ = device_us_per_call(lambda: upscale(esrgan, img, tile=128), "", calls=3)
+    dec_flops = count_flops(lambda: decode_latents(pipe, z))
+    bert_flops = count_flops(lambda: text_encode([PROMPT] * 3))
+    sr_flops = count_flops(lambda: upscale(esrgan, img))
+
+    def rate(n, us):
+        return f"{n / 1e12:.3f} TFLOP, {n / us / 1e6:.1f} TFLOP/s"
+
+    print(f"latent profile: VQ decode of 3 latents (32x32x4 -> 256x256) device "
+          f"{dec_us / 1e3:.2f} ms in {dec_ops:.0f} device ops ({rate(dec_flops, dec_us)}); "
+          f"BERT at batch 3 device {bert_us / 1e3:.2f} ms ({rate(bert_flops, bert_us)}); "
+          f"ESRGAN x4 of one 256x256 image device {whole_us / 1e3:.2f} ms whole "
+          f"({rate(sr_flops, whole_us)}), {tiled_us / 1e3:.2f} ms in 128 px tiles", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -598,25 +912,28 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    phase("card")
+    phase("card", t_start)
     card = card_line()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; TF32 off for matmul and cuDNN",
           flush=True)
 
-    phase("build")
+    phase("build", t_start)
     build_all()
 
-    phase("kernels")
+    phase("kernels", t_start)
     records = [check_quantile_kernel(dev, name) for name in QUANTILE_KERNELS]
 
-    phase("reference")
+    phase("reference", t_start)
     check_reference(dev)
 
-    phase("zoo")
+    phase("latent reference", t_start)
+    check_latent_reference(dev)
+
+    phase("zoo", t_start)
     zoo = build_zoo(dev)
 
-    phase("main path")
+    phase("main path", t_start)
     main_config = Config(width=512, height=512, num_cutout_batches=4,
                          chosen_clip_models=PERCEPTORS)
     main_models = zoo_subset(zoo, PERCEPTORS)
@@ -627,20 +944,32 @@ def main(argv=None) -> int:
         if QUANTILE_KERNELS[rec["name"]]["on_path"] and rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was not launched on the main path")
 
-    phase("default request")
+    phase("default request", t_start)
     default = Config()
     default_models = zoo_subset(zoo, default.chosen_clip_models)
     run_path("default request", default_models, args.steps, (default.height, default.width, 3),
              os.path.join(args.out, "default"), steps=args.steps)  # no config: Config()
 
-    phase("init-image path")
+    phase("init-image path", t_start)
     init_run = run_init_path(zoo, os.path.join(args.out, "init"))
 
-    phase("profile")
+    phase("profile", t_start)
     profile_steps(dev, "main", main_models, main_config, 2, args.out)
     profile_steps(dev, "default", default_models, default, 2, args.out)
     profile_steps(dev, "init", init_run["models"], init_run["config"], 2, args.out,
                   init_run["sampler"], init_run["init_png"])
+
+    phase("latent zoo", t_start)
+    latent_pipe, text_encode, esrgan = build_latent_zoo(dev)
+
+    phase("latent request", t_start)
+    run_latent_request(dev, latent_pipe, esrgan, os.path.join(args.out, "latent"))
+
+    phase("inpainting path", t_start)
+    run_inpainting_path(dev, latent_pipe, text_encode, os.path.join(args.out, "inpaint"))
+
+    phase("latent profile", t_start)
+    profile_latent(dev, latent_pipe, text_encode, esrgan, args.out)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -14,10 +14,12 @@ port's `state_dict` keys, which follow the reference torch checkpoints:
 * BatchNorm `batch_stats` mean, var  -> running_mean, running_var
 * `Embed.embedding`                  -> weight
 * CLIP `class_embedding`, `positional_embedding`, `proj`,
-  `text_projection`                  -> the same array
+  `text_projection`; BERT `pos_emb`; the VQ `codebook` -> the same array
+* BERT fused `qkv` kernel (in, 3 * inner) -> to_q, to_k and to_v weights,
+  one third each, transposed (several port keys read one JAX leaf)
 
-It is the inverse of the JAX package's `models/convert.py`, written
-independently of it.  Loading fails on any JAX leaf left unused and on any
+It is the inverse of the JAX package's converters (`models/convert.py`,
+`models/ldm/convert.py`), written independently of them.  Loading fails on any JAX leaf left unused and on any
 port parameter left unset.  `jax_layout` runs the same mapping backwards
 (port key -> JAX path and shape), which the zoo uses to draw random
 weights in the JAX package's leaf order.
@@ -38,11 +40,14 @@ _TO_PORT: Dict[str, Callable[[np.ndarray], np.ndarray]] = {
     "same": lambda a: a,
     "dense": lambda a: a.T,
     "conv": lambda a: a.transpose(3, 2, 0, 1),
+    # one third of a fused (in, 3 * inner) dense kernel: q, k, v
+    **{f"qkv{j}": (lambda a, j=j: np.split(a, 3, axis=-1)[j].T) for j in range(3)},
 }
 _TO_JAX_SHAPE: Dict[str, Callable[[tuple], tuple]] = {
     "same": lambda s: s,
     "dense": lambda s: (s[1], s[0]),
     "conv": lambda s: (s[2], s[3], s[1], s[0]),
+    **{f"qkv{j}": (lambda s: (s[1], 3 * s[0])) for j in range(3)},
 }
 
 
@@ -194,6 +199,117 @@ def lpips_rule(key: str) -> Tuple[Path, str]:
     return (parts[0], "kernel"), "conv"
 
 
+def _transformer_block(parts: List[str], leaf: str, prefix: Path) -> Tuple[Path, str]:
+    """`transformer_blocks.D.<sub>` keys of an LDM SpatialTransformer."""
+    block = prefix + (f"blocks_{parts[1]}",)
+    sub = parts[2]
+    if sub in ("norm1", "norm2", "norm3"):
+        name, kind = _leaf(leaf, "norm")
+        return block + (sub, name), kind
+    if sub in ("attn1", "attn2"):  # to_q, to_k, to_v, to_out.0
+        name, kind = _leaf(leaf, "dense")
+        return block + (sub, parts[3], name), kind
+    if parts[2:5] == ["ff", "net", "0"]:  # GEGLU projection
+        name, kind = _leaf(leaf, "dense")
+        return block + ("ff_geglu", "proj", name), kind
+    if parts[2:5] == ["ff", "net", "2"]:
+        name, kind = _leaf(leaf, "dense")
+        return block + ("ff_out", name), kind
+    raise KeyError(f"unmapped transformer block key: {'.'.join(parts)}")
+
+
+def ldm_unet_rule(key: str) -> Tuple[Path, str]:
+    """Port LDM UNet key (CompVis names) -> JAX path; the ResBlocks, the
+    stem, the time embedding and the head share the ADM UNet's rule."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] in ("input_blocks", "output_blocks", "middle_block"):
+        if parts[0] == "middle_block":
+            block, rest = f"middle_block_{parts[1]}", parts[2:-1]
+        else:
+            block, rest = f"{parts[0]}_{parts[1]}_{parts[2]}", parts[3:-1]
+        if rest and rest[0] == "transformer_blocks":
+            return _transformer_block(rest, leaf, (block,))
+        if rest in (["proj_in"], ["proj_out"], ["op"], ["conv"]):
+            name, kind = _leaf(leaf, "conv")
+            return (block, rest[0], name), kind
+    return unet_rule(key)
+
+
+def vq_rule(key: str) -> Tuple[Path, str]:
+    """Port VQ key (taming names) -> JAX path."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if key == "quantize.embedding.weight":
+        return ("codebook",), "same"
+    if parts[0] in ("quant_conv", "post_quant_conv"):
+        name, kind = _leaf(leaf, "conv")
+        return (parts[0], name), kind
+    scope, p = parts[0], parts[1:-1]
+    if p[0] == "mid":  # mid.block_1.<sub>, mid.attn_1.<sub>
+        layer, sub = f"mid_{p[1]}", p[2]
+    elif p[0] in ("down", "up") and p[2] in ("block", "attn"):  # down.L.block.I.<sub>
+        layer, sub = f"{p[0]}_{p[1]}_{p[2]}_{p[3]}", p[4]
+    elif p[0] in ("down", "up"):  # down.L.downsample.conv, up.L.upsample.conv
+        name, kind = _leaf(leaf, "conv")
+        return (scope, f"{p[0]}_{p[1]}_{p[2]}", name), kind
+    elif p[0] == "norm_out":
+        name, kind = _leaf(leaf, "norm")
+        return (scope, "norm_out", "GroupNorm_0", name), kind
+    else:  # conv_in, conv_out
+        name, kind = _leaf(leaf, "conv")
+        return (scope, p[0], name), kind
+    if sub.startswith("norm"):
+        name, kind = _leaf(leaf, "norm")
+        return (scope, layer, sub, "GroupNorm_0", name), kind
+    name, kind = _leaf(leaf, "conv")  # conv1, conv2, nin_shortcut, q, k, v, proj_out
+    return (scope, layer, sub, name), kind
+
+
+_QKV = {"to_q": "qkv0", "to_k": "qkv1", "to_v": "qkv2"}
+
+
+def bert_rule(key: str) -> Tuple[Path, str]:
+    """Port BERT key (x-transformers names) -> JAX path; to_q/to_k/to_v
+    are the thirds of the fused `qkv` kernel."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if key == "token_emb.weight":
+        return ("token_emb", "embedding"), "same"
+    if key == "pos_emb.emb.weight":
+        return ("pos_emb",), "same"
+    if parts[0] == "norm":  # the final LayerNorm
+        name, kind = _leaf(leaf, "norm")
+        return ("norm", name), kind
+    pair, odd = divmod(int(parts[2]), 2)  # attn_layers.layers.I.<j>...
+    block = (f"layers_{pair}",)
+    if parts[3] == "0":  # the pre-norm LayerNorm
+        name, kind = _leaf(leaf, "norm")
+        return block + ("norm2" if odd else "norm1", name), kind
+    if not odd and parts[4] in _QKV:
+        return block + ("qkv", "kernel"), _QKV[parts[4]]
+    if not odd and parts[4] == "to_out":
+        layer = "attn_out"
+    elif odd and parts[4:7] == ["net", "0", "0"]:
+        layer = "ff_in"
+    elif odd and parts[4:6] == ["net", "2"]:
+        layer = "ff_out"
+    else:
+        raise KeyError(f"unmapped BERT key: {key}")
+    name, kind = _leaf(leaf, "dense")
+    return block + (layer, name), kind
+
+
+def esrgan_rule(key: str) -> Tuple[Path, str]:
+    """Port RRDBNet key (basicsr names: `body.N.rdbM.convK.*`, `conv_*`) ->
+    JAX path."""
+    parts = key.split(".")
+    name, kind = _leaf(parts[-1], "conv")
+    if parts[0] == "body":
+        return (f"body_{parts[1]}", parts[2], parts[3], name), kind
+    return (parts[0], name), kind
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -233,17 +349,22 @@ def to_state_dict(tree: Mapping, module: nn.Module, rule) -> Dict[str, torch.Ten
     keep their dtype; the caller casts)."""
     flat = _flat_collections(tree)
     sd = {}
+    used = set()
     for path, shape, key, kind in jax_layout(module, rule):
         if path not in flat:
             raise KeyError(f"port parameter {key} has no JAX leaf {'/'.join(path)}")
-        arr = flat.pop(path)
+        arr = flat[path]
         if tuple(arr.shape) != shape:
             raise ValueError(
                 f"{'/'.join(path)}: JAX shape {tuple(arr.shape)}, expected {shape} for {key}"
             )
+        if path in used and not kind.startswith("qkv"):  # only a fused qkv feeds several keys
+            raise KeyError(f"JAX leaf {'/'.join(path)} mapped twice (again for {key})")
         sd[key] = torch.from_numpy(np.array(_TO_PORT[kind](arr), order="C"))
-    if flat:
-        raise KeyError(f"JAX leaves not used by the port: {sorted('/'.join(p) for p in flat)}")
+        used.add(path)
+    unused = set(flat) - used
+    if unused:
+        raise KeyError(f"JAX leaves not used by the port: {sorted('/'.join(p) for p in unused)}")
     return sd
 
 
@@ -270,3 +391,18 @@ def load_aesthetic(module: nn.Module, tree: Mapping) -> nn.Module:
 def load_lpips(module: nn.Module, tree: Mapping) -> nn.Module:
     return load_into(module, tree, lpips_rule)
 
+
+def load_ldm_unet(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, ldm_unet_rule)
+
+
+def load_vq(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, vq_rule)
+
+
+def load_bert(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, bert_rule)
+
+
+def load_esrgan(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, esrgan_rule)

@@ -166,6 +166,28 @@ def _nearest_up2(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
+class Downsample(nn.Module):
+    """Stride-2 downsampling: a 3x3 conv with symmetric padding 1."""
+
+    def __init__(self, channels: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.op = Conv2d(channels, channels, 3, stride=2, padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    """Nearest x2 upsampling, then a 3x3 conv."""
+
+    def __init__(self, channels: int, dtype=torch.bfloat16):
+        super().__init__()
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(_nearest_up2(x))
+
+
 class ResBlock(nn.Module):
     """ADM residual block with scale-shift-norm time conditioning and
     optional up/downsampling."""

@@ -27,8 +27,9 @@ than one chunk's activations.
 
 Randomness comes from a `draws` object: `initial_noise`, `step_noise` and
 `cutouts` (the per-slot crop, flip, noise, affine, gray and jitter values).
-`TorchDraws` draws them from a `torch.Generator` on the device; tests pass
-an object that replays the JAX package's key chain.
+`TorchDraws` draws them, and the latent pipeline's `inpaint_noise`, from a
+`torch.Generator` on the device; tests pass an object that replays the JAX
+package's key chain.
 """
 
 from __future__ import annotations
@@ -115,6 +116,10 @@ class TorchDraws:
         return torch.randn(shape, generator=self.gen, device=self.device)
 
     def step_noise(self, step: int, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.gen, device=self.device)
+
+    def inpaint_noise(self, step: int, shape) -> torch.Tensor:
+        """The latent pipeline's re-noise of the known region."""
         return torch.randn(shape, generator=self.gen, device=self.device)
 
     def cutouts(self, step: int, group: int, batch: int, repeats: int,

@@ -1,10 +1,10 @@
 """Public sampling API of the PyTorch port.
 
-`guided_diffusion_sample` keeps the JAX package's keyword arguments and
-return dict, plus `device=` (default `cuda`; the CPU only when asked).
-Not yet ported, and raising `NotImplementedError`: auto modifiers and
-`custom_model_params` (they wait for the text front end and checkpoint
-loading).
+`guided_diffusion_sample` and `latent_diffusion_sample` keep the JAX
+package's keyword arguments and return dicts, plus `device=` (default
+`cuda`; the CPU only when asked).  Not yet ported, and raising
+`NotImplementedError`: auto modifiers and `custom_model_params` (they wait
+for the text front end and checkpoint loading).
 """
 
 from __future__ import annotations
@@ -20,17 +20,27 @@ from clip_diffusion_tpu_torch.config import Config
 from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws
 from clip_diffusion_tpu_torch.pipeline.guided import guided_sample as _run_guided
+from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
 from clip_diffusion_tpu_torch.text.prompt import Prompt
 from clip_diffusion_tpu_torch.utils.device import resolve_device
 from clip_diffusion_tpu_torch.utils.image_io import (
     array_to_image,
     create_gif,
+    draw_index_on_grid_image,
     load_image,
+    load_mask,
+    make_grid,
     normalize_image_neg_one_to_one,
 )
 from clip_diffusion_tpu_torch.utils.progress import LocalUploader, store_task_state
 from clip_diffusion_tpu_torch.utils.seeds import random_seed
-from clip_diffusion_tpu_torch.zoo import build_lpips, build_models, build_pipeline
+from clip_diffusion_tpu_torch.zoo import (
+    build_latent_models,
+    build_latent_pipeline,
+    build_lpips,
+    build_models,
+    build_pipeline,
+)
 
 OUTPUT_PATH = "output_images"
 
@@ -161,3 +171,127 @@ def guided_diffusion_sample(
         gif_urls.append(uploader.upload(gif_path, minutes=10))
     store_task_state("current_step", pipe.schedule.num_steps)
     return {"images": image_paths, "gif_urls": gif_urls, "seed": int(seed)}
+
+
+# the default LDM stack, built at the first request that needs it, per device
+_LATENT_STACK_CACHE: dict = {}
+
+
+def default_latent_stack(device=None):
+    """(LatentPipeline, text_encode) of the full-width LDM stack on `device`
+    (default `cuda`), built once per device and kept for later requests."""
+    device = resolve_device(device)
+    if str(device) not in _LATENT_STACK_CACHE:
+        _LATENT_STACK_CACHE[str(device)] = build_latent_pipeline(
+            build_latent_models(device=device))
+    return _LATENT_STACK_CACHE[str(device)]
+
+
+def iteration_seed(seed: int, iteration: int) -> int:
+    """The seed of one iteration's draws: a stream of its own per (seed,
+    iteration), as the JAX package folds the iteration into its key."""
+    return int(np.random.SeedSequence([int(seed), int(iteration)]).generate_state(1)[0])
+
+
+def latent_diffusion_sample(
+    prompt: str = "A cute golden retriever.",
+    seed: Optional[int] = None,
+    init_image=None,
+    mask_image=None,
+    sample_mode: str = "ddim",
+    diffusion_steps: int = 50,
+    eta: float = 0.0,
+    latent_diffusion_guidance_scale: float = 5,
+    num_iterations: int = 3,
+    num_batches: int = 3,
+    sample_width: int = 256,
+    sample_height: int = 256,
+    pipe=None,
+    text_encode=None,
+    upscaler=None,
+    uploader=None,
+    output_dir: str = OUTPUT_PATH,
+    device=None,
+):
+    """Latent-diffusion txt2img, or inpainting when both `init_image` and
+    `mask_image` are given (mask white = keep), then optional upscaling.
+    Returns {"grid_url", "images", "seed"}.
+
+    Each of `num_iterations` iterations samples `num_batches` images with
+    its own draws and writes them as <output_dir>/latent/latent_{n}.png;
+    the indexed grid of all of them is latent_grid_image.png.
+    `upscaler(images01)` takes a (1, H, W, 3) tensor in [0, 1] on `device`
+    and returns the upscaled one (e.g. `functools.partial(models.esrgan.
+    upscale, zoo.build_esrgan())`); its outputs go to latent/sr/.
+    `pipe` and `text_encode` (from `zoo.build_latent_pipeline`, on
+    `device`) are given together or not at all: without them the default
+    stack is built once per device (`default_latent_stack`).  The modules
+    carry their weights, so there is no `latent_params` argument."""
+    device = resolve_device(device)
+    if pipe is None and text_encode is None:
+        pipe, text_encode = default_latent_stack(device)
+    elif pipe is None or text_encode is None:
+        raise ValueError(
+            "latent_diffusion_sample: pass pipe and text_encode together, or "
+            "neither for the default stack"
+        )
+    uploader = uploader or LocalUploader(output_dir)
+    batch_folder = os.path.join(output_dir, "latent")
+    os.makedirs(batch_folder, exist_ok=True)
+
+    p = Prompt(prompt, False, 0)
+    if not seed:
+        seed = random_seed()
+
+    ctx_cond = text_encode([p.text] * num_batches)
+    ctx_uncond = None
+    if latent_diffusion_guidance_scale > 0:
+        ctx_uncond = text_encode([""] * num_batches)
+
+    x0_latent = None
+    mask = None
+    if init_image is not None and mask_image is not None:
+        init = normalize_image_neg_one_to_one(
+            load_image(init_image, (sample_width, sample_height)))
+        z = img2img_start(pipe, torch.from_numpy(init)[None].to(device))
+        x0_latent = z.repeat(num_batches, 1, 1, 1)
+        m = load_mask(mask_image, (sample_width // pipe.downsample,
+                                   sample_height // pipe.downsample))
+        mask = torch.from_numpy(m)[None].to(device).repeat(num_batches, 1, 1, 1)
+
+    all_images = []
+    count = 0
+    for iteration in range(num_iterations):
+        z = latent_sample(
+            pipe, TorchDraws(iteration_seed(seed, iteration), device), ctx_cond, ctx_uncond,
+            batch_size=num_batches, height=sample_height, width=sample_width,
+            steps=diffusion_steps, guidance_scale=latent_diffusion_guidance_scale,
+            eta=eta, mode=sample_mode, x0_latent=x0_latent, mask=mask,
+        )
+        images01 = decode_latents(pipe, z).float().cpu().numpy()
+        for img in images01:
+            array_to_image(img).save(os.path.join(batch_folder, f"latent_{count}.png"))
+            count += 1
+        store_task_state("current_iteration", iteration + 1)
+        all_images.append(images01)
+
+    grid = make_grid(np.concatenate(all_images, axis=0), nrow=num_batches)
+    grid_img = draw_index_on_grid_image(array_to_image(grid), num_iterations, num_batches,
+                                        sample_height, sample_width)
+    grid_path = os.path.join(batch_folder, "latent_grid_image.png")
+    grid_img.save(grid_path)
+    grid_url = uploader.upload(grid_path)
+
+    if upscaler is not None:
+        os.makedirs(os.path.join(batch_folder, "sr"), exist_ok=True)
+        for i in range(count):
+            img = load_image(os.path.join(batch_folder, f"latent_{i}.png"))
+            up = upscaler(torch.from_numpy(img)[None].to(device))
+            array_to_image(up[0].float().cpu().numpy()).save(
+                os.path.join(batch_folder, "sr", f"latent_{i}.png"))
+
+    return {
+        "grid_url": grid_url,
+        "images": [os.path.join(batch_folder, f"latent_{i}.png") for i in range(count)],
+        "seed": int(seed),
+    }

@@ -1,8 +1,12 @@
-"""Pipeline factory: build the guided pipeline from the model zoo.
+"""Pipeline factory: build the guided and latent pipelines from the model
+zoo.
 
-Counterpart of `clip_diffusion_tpu.zoo` for the guided request: pick the
+Counterpart of `clip_diffusion_tpu.zoo`.  For the guided request: pick the
 CLIP perceptors by name, build the ADM UNet, the aesthetic heads and LPIPS,
-embed the prompt per perceptor.  Real checkpoints are not in the repository
+embed the prompt per perceptor.  For the latent request: the LDM UNet
+(seed, `param_dtype`), the VQ-f8 first stage (seed + 1, float32) and the
+BERT encoder (seed + 2, `param_dtype`), and Real-ESRGAN (seed 2000,
+float32).  Real checkpoints are not in the repository
 yet, so every model is randomly initialized host-side with numpy by the JAX
 zoo's rules (`_host_init`): `scale` and any leaf whose name holds `var` ->
 ones, `bias` and `mean` -> zeros (these draw no random numbers), everything
@@ -29,9 +33,14 @@ from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.aesthetic import CLIP_DIMS, make_aesthetic_predictor
 from clip_diffusion_tpu_torch.models.clip.model import CLIP_PRESETS, CLIPModel
 from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
+from clip_diffusion_tpu_torch.models.esrgan import RRDBNet
+from clip_diffusion_tpu_torch.models.ldm.autoencoder import VQConfig, VQModel
+from clip_diffusion_tpu_torch.models.ldm.bert import BERTConfig, BERTEmbedder, bert_tokenize
+from clip_diffusion_tpu_torch.models.ldm.unet import LDMUNet, LDMUNetConfig
 from clip_diffusion_tpu_torch.models.lpips import LPIPS
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.pipeline.guided import GuidedPipeline, Perceptor
+from clip_diffusion_tpu_torch.pipeline.latent import LatentPipeline
 from clip_diffusion_tpu_torch.utils.device import resolve_device
 
 
@@ -51,17 +60,20 @@ def host_init_state_dict(module: nn.Module, rule, seed: int = 0,
     the JAX leaf order (see module docstring)."""
     rng = np.random.default_rng(seed)
     sd = {}
+    drawn_path, drawn = None, None
     for path, shape, key, kind in from_jax.jax_layout(module, rule):
-        name = path[-1]
-        if name == "scale" or "var" in name:
-            arr = np.ones(shape)
-        elif name in ("bias", "mean"):
-            arr = np.zeros(shape)
-        else:
-            fan_in = int(np.prod(shape[:-1])) or 1
-            arr = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
-        arr = np.ascontiguousarray(from_jax._TO_PORT[kind](arr))
-        sd[key] = torch.from_numpy(arr).to(dtype)
+        if path != drawn_path:  # one draw per JAX leaf (a fused qkv feeds three keys)
+            name = path[-1]
+            if name == "scale" or "var" in name:
+                drawn = np.ones(shape)
+            elif name in ("bias", "mean"):
+                drawn = np.zeros(shape)
+            else:
+                fan_in = int(np.prod(shape[:-1])) or 1
+                drawn = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+            drawn_path = path
+        # cast first, then lay out: a bf16 copy is cheaper than a float64 one
+        sd[key] = torch.from_numpy(from_jax._TO_PORT[kind](drawn)).to(dtype).contiguous()
     return sd
 
 
@@ -188,3 +200,68 @@ def build_pipeline(
         lpips_fn=models.lpips,
         use_init_losses=use_init_losses,
     )
+
+
+@dataclasses.dataclass
+class LatentModels:
+    """The LDM stack: cross-attention UNet, VQ-f8 first stage, BERT."""
+
+    unet: LDMUNet
+    vq: VQModel
+    bert: BERTEmbedder
+
+
+def build_latent_models(param_dtype=torch.bfloat16, seed: int = 0, tiny: bool = False,
+                        device=None) -> LatentModels:
+    """The LDM txt2img-f8-large stack on `device` (default `cuda`), randomly
+    initialized as the JAX zoo does: the UNet at `seed` and the BERT at
+    seed + 2 in `param_dtype`, the VQ at seed + 1 in float32.  `tiny`
+    builds the test configs, the BERT as wide as the tiny UNet's context."""
+    device = resolve_device(device)
+    ucfg = LDMUNetConfig.tiny() if tiny else LDMUNetConfig()
+    vcfg = VQConfig.tiny() if tiny else VQConfig()
+    bcfg = BERTConfig.tiny() if tiny else BERTConfig()
+    if tiny:
+        bcfg = dataclasses.replace(bcfg, n_embed=ucfg.context_dim)
+    unet = _materialize(lambda: LDMUNet(ucfg), from_jax.ldm_unet_rule, seed, param_dtype, device)
+    vq = _materialize(lambda: VQModel(vcfg), from_jax.vq_rule, seed + 1, torch.float32, device)
+    bert = _materialize(lambda: BERTEmbedder(bcfg), from_jax.bert_rule, seed + 2, param_dtype,
+                        device)
+    return LatentModels(unet, vq, bert)
+
+
+class BertTextEncoder:
+    """texts -> (N, 77, D) float32 context through the BERT on its device."""
+
+    def __init__(self, bert: BERTEmbedder):
+        self.bert = bert
+
+    @torch.inference_mode()
+    def __call__(self, texts):
+        device = self.bert.token_emb.weight.device
+        toks = torch.from_numpy(bert_tokenize(texts)).to(device=device, dtype=torch.long)
+        return self.bert(toks)
+
+
+def build_latent_pipeline(models: LatentModels) -> Tuple[LatentPipeline, BertTextEncoder]:
+    """(LatentPipeline, text_encode) over the stack's modules."""
+    pipe = LatentPipeline(
+        unet=models.unet,
+        decode=models.vq.decode,
+        encode=models.vq.encode,
+        latent_channels=models.vq.cfg.embed_dim,
+        downsample=2 ** (len(models.vq.cfg.ch_mult) - 1),
+    )
+    return pipe, BertTextEncoder(models.bert)
+
+
+def build_esrgan(scale: int = 4, seed: int = 2000, tiny: bool = False,
+                 device=None) -> RRDBNet:
+    """The Real-ESRGAN upsampler, RRDBNet(3, 3, 64, 23, 32, scale) in
+    float32, on `device` (default `cuda`); `tiny`: 16 features, 2 blocks,
+    growth 8."""
+    if tiny:
+        build = lambda: RRDBNet(scale=scale, num_feat=16, num_block=2, num_grow_ch=8)
+    else:
+        build = lambda: RRDBNet(scale=scale)
+    return _materialize(build, from_jax.esrgan_rule, seed, torch.float32, resolve_device(device))

@@ -1,6 +1,6 @@
-"""The port's CUDA kernel, and the ops whose GPU sums run in no fixed
-order, on the card: it imports neither JAX nor the JAX package, so a
-machine with a GPU and no JAX runs it with
+"""The port's CUDA kernel, the ops whose GPU sums run in no fixed order,
+and the tiny latent stack, on the card: it imports neither JAX nor the JAX
+package, so a machine with a GPU and no JAX runs it with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
@@ -13,7 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from clip_diffusion_tpu_torch import zoo
+from clip_diffusion_tpu_torch.models.esrgan import upscale
 from clip_diffusion_tpu_torch.ops.augment import affine_gather
+from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws
+from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, latent_sample
 from clip_diffusion_tpu_torch.ops.quantile import (
     dynamic_threshold_fast,
     histogram_abs_quantile,
@@ -135,3 +139,67 @@ def test_affine_gather_on_card_matches_cpu(cuda):
     (o_cpu, g_cpu), (o_gpu, g_gpu) = outs["cpu"], outs[str(cuda)]
     torch.testing.assert_close(o_gpu, o_cpu, rtol=0, atol=1e-6)
     torch.testing.assert_close(g_gpu, g_cpu, rtol=0, atol=1e-5)
+
+
+class _CpuDraws(TorchDraws):
+    """Draws from a CPU generator, handed over on `target`: the same
+    numbers for the CPU run and the GPU run."""
+
+    def __init__(self, seed, target):
+        super().__init__(seed, "cpu")
+        self.target = target
+
+    def initial_noise(self, shape):
+        return super().initial_noise(shape).to(self.target)
+
+    def step_noise(self, step, shape):
+        return super().step_noise(step, shape).to(self.target)
+
+    def inpaint_noise(self, step, shape):
+        return super().inpaint_noise(step, shape).to(self.target)
+
+
+@pytest.mark.cuda
+def test_tiny_latent_stack_on_card_matches_cpu(cuda):
+    """The tiny float32 latent stack (LDM UNet, VQ, BERT, RRDBNet x4) on the
+    card against the CPU on the same weights and draws: 4 CFG DDIM steps at
+    eta 0.5 and 4 PLMS steps inpainting the top half, decoded and upscaled.
+    Float32 sums in another order (cuDNN and cuBLAS): atol 1e-3 on [0, 1]
+    images."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    outs = {}
+    for dev in (torch.device("cpu"), cuda):
+        models = zoo.build_latent_models(tiny=True, param_dtype=torch.float32, device=dev)
+        pipe, text_encode = zoo.build_latent_pipeline(models)
+        esrgan = zoo.build_esrgan(tiny=True, device=dev)
+        ctx_c, ctx_u = text_encode(["a lighthouse"] * 2), text_encode([""] * 2)
+        x0 = pipe.encode(torch.linspace(-1, 1, 2 * 32 * 32 * 3, device=dev).reshape(2, 32, 32, 3))
+        mask = torch.zeros((2, 16, 16, 1), device=dev)
+        mask[:, :8] = 1.0
+        images = []
+        for kw in (dict(mode="ddim", eta=0.5), dict(mode="plms", x0_latent=x0, mask=mask)):
+            z = latent_sample(pipe, _CpuDraws(5, dev), ctx_c, ctx_u, batch_size=2, height=32,
+                              width=32, steps=4, **kw)
+            imgs = decode_latents(pipe, z)
+            images += [imgs, upscale(esrgan, imgs)]
+        outs[dev.type] = [t.float().cpu() for t in images]
+    for cpu, gpu in zip(outs["cpu"], outs["cuda"]):
+        assert torch.isfinite(gpu).all()
+        torch.testing.assert_close(gpu, cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_esrgan_tiled_equals_whole_on_card(cuda):
+    """RRDBNet x4 (tiny) on the card: 8 px tiles of a 16x16 image each see
+    the whole image with their 16 px of context, so the tiled pass equals
+    the whole one within 1e-6; the whole pass equals the CPU's within 1e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    img = torch.from_numpy(rng.uniform(0, 1, (2, 16, 16, 3)).astype(np.float32))
+    gpu_model = zoo.build_esrgan(tiny=True, device=cuda)
+    whole = upscale(gpu_model, img.to(cuda))
+    tiled = upscale(gpu_model, img.to(cuda), tile=8)
+    torch.testing.assert_close(tiled, whole, rtol=0, atol=1e-6)
+    cpu = upscale(zoo.build_esrgan(tiny=True, device="cpu"), img)
+    torch.testing.assert_close(whole.cpu(), cpu, rtol=0, atol=1e-4)
