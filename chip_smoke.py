@@ -28,33 +28,48 @@ Phases, each announced on its own line; any failure exits non-zero:
 8. init-image path: an init PNG made here from a seeded array, PLMS, 20
    steps with 10 skipped, the aesthetic and MS-SSIM terms on and LPIPS at
    its default scale, at 768x512;
-9. profile: two steps of each of the three paths timed, then run under
-   torch.profiler: device time by kernel class and by direction, the
+9. text front end: the shipped modifier bank's full-width sentence-T5
+   (float32) on the card embeds the 120 modifier names within 1e-4 of
+   data/banks/modifiers_t5.npy, each retrieving its own row; the zoo's
+   bf16 ViT-B/16 and ViT-L/14 text towers embed the style and media names
+   at cosine >= 0.999 to their banks, each retrieving its own row; a
+   full-width MarianMT (opus-mt-zh-en, seeded random init, float32) on the
+   card against the same model on the CPU: teacher-forced logits of 3
+   Chinese prompts within 1e-3 of their scale, greedy ids to 64 tokens
+   equal (a difference must be a printed near-tie); `guided_diffusion_
+   sample` with a Traditional-Chinese prompt and 2 auto-modifiers on the
+   main path's towers and canvas, its `new_prompt` predicted apart; the
+   analyzer (ViT-B/16 + ViT-L/14) on the main path's image; CLIP scores of
+   that image and of a 2-prompt suite sampled at 256x256 for 5 steps;
+10. profile: two steps of each of the three guided paths timed, then run
+   under torch.profiler: device time by kernel class and by direction, the
    device's idle share, and each tower's device time over the step's cuts;
-10. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
+11. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
     RRDBNet x4) on the card against the same stack on the CPU, same weights
     and draws: a 5-step CFG DDIM txt2img and a 6-step PLMS inpainting, each
     decoded and upscaled x4;
-11. latent zoo: the full-width LDM UNet (bfloat16), VQ-f8 (float32) and
+12. latent zoo: the full-width LDM UNet (bfloat16), VQ-f8 (float32) and
     BERT (bfloat16) as `sample.default_latent_stack` builds them, and
     Real-ESRGAN x4 (float32), built once, with their parameter counts;
-12. latent request: `latent_diffusion_sample()` with no model arguments
+13. latent request: `latent_diffusion_sample()` with no model arguments
     (256x256, CFG DDIM, 50 steps, eta 0, guidance 5, 3 iterations x 3
     images) and the ESRGAN x4 upscaler: 150 finite UNet forwards at batch
     6, 9 PNGs, the grid and 9 upscales at 1024x1024;
-13. inpainting path: an init PNG and a mask PNG made here from seeded
+14. inpainting path: an init PNG and a mask PNG made here from seeded
     arrays, PLMS, 20 steps, 1 iteration x 2 images: the kept region's final
     latent must stay nearer the init latent than the free region's;
-14. latent profile: two CFG steps of the request timed, then run under
+15. latent profile: two CFG steps of the request timed, then run under
     torch.profiler (device ms per step, idle share, device time by kernel
     class, achieved FLOP/s), the VQ decode's device time, and one ESRGAN x4
     call per image, whole and tiled.
 
 On every path the kernel launch counts are zeroed just before it runs and
-read just after: on the guided paths mode B of the quantile kernel once per
+read just after: on the guided paths (the auto-modifier request and the
+score suite's samples included) mode B of the quantile kernel once per
 executed step, mode A never; on the latent paths neither mode.
 
-Then one JSON line {"kernels": [...]}, the nvidia-smi line again, and as
+Then one JSON line {"kernels": [...]} (each kernel's launches on the main
+path, and on every path under "launches_by_path"), the nvidia-smi line again, and as
 the last line {"ok": true, "device": {...}}.  TF32 is off throughout, so
 float32 comparisons run in full float32.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -63,6 +78,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import ctypes
 import dataclasses
 import glob
@@ -79,10 +95,20 @@ from PIL import Image
 
 from clip_diffusion_tpu_torch.config import Config, CutoutSchedules, create_schedule
 from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig
+from clip_diffusion_tpu_torch.guidance.losses import l2_normalize
+from clip_diffusion_tpu_torch.guidance.score import PROMPT_SUITE, clip_scores, score_suite
 from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.aesthetic import LinearAestheticPredictor
 from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_config
+from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
 from clip_diffusion_tpu_torch.models.esrgan import upscale
+from clip_diffusion_tpu_torch.models.marian import (
+    MarianConfig,
+    greedy_decode,
+    marian_tokenize,
+    marian_translator,
+)
+from clip_diffusion_tpu_torch.models.t5 import t5_tokenize
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.ops import kernels
 from clip_diffusion_tpu_torch.ops import quantile as quantile_ops
@@ -92,6 +118,7 @@ from clip_diffusion_tpu_torch.ops.quantile import (
     histogram_quantile,
     histogram_quantile_plain,
 )
+from clip_diffusion_tpu_torch.parallel.serving import load_analysis_bank, make_analyzer
 from clip_diffusion_tpu_torch.pipeline import guided as guided_mod
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
@@ -100,11 +127,16 @@ from clip_diffusion_tpu_torch.sample import (
     guided_diffusion_sample,
     latent_diffusion_sample,
 )
+from clip_diffusion_tpu_torch.text.prompt import ARTSTATION_SUFFIX, Prompt, load_modifier_bank
+from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
+from clip_diffusion_tpu_torch.text.zh import tw_to_simplified
+from clip_diffusion_tpu_torch.tools.clip_score import provenance_summary, suite_sampler
 from clip_diffusion_tpu_torch.utils.image_io import (
     load_image,
     load_mask,
     normalize_image_neg_one_to_one,
 )
+from clip_diffusion_tpu_torch.utils.progress import get_task_state
 from clip_diffusion_tpu_torch.zoo import (
     ZooModels,
     build_esrgan,
@@ -114,6 +146,7 @@ from clip_diffusion_tpu_torch.zoo import (
     build_models,
     build_pipeline,
     host_init_state_dict,
+    init_marian,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel.
@@ -128,6 +161,11 @@ PROMPT = "A lighthouse on a cliff at golden hour, oil painting."
 # parameter counts of the full-width latent stack (the JAX package's eval_shape)
 LATENT_PARAMS = {"LDM UNet": 872300484, "VQ-f8": 67717295, "BERT": 542895360,
                  "RRDBNet x4": 16697987}
+# ... and of the text front end's towers at full width
+T5_PARAMS, MARIAN_PARAMS = 110218368, 77484009
+BANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "banks")
+ZH_PROMPTS = ("一隻可愛的貓坐在筆記型電腦旁", "夕陽下的燈塔 油畫", "龍 飛過 雪山")
+MARIAN_SEED = 7  # the stand-in MarianMT's host-init seed
 
 
 def phase(name: str, t_start: float) -> None:
@@ -424,10 +462,12 @@ def zoo_subset(zoo: ZooModels, names, with_extras: bool = False) -> ZooModels:
 
 def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
              **kwargs) -> dict:
-    """`guided_diffusion_sample(**kwargs)` on `models`, with the kernel
-    counts zeroed just before and read just after; checks mode B once per
-    executed step and mode A never, finite UNet outputs every step, a final
-    PNG of `shape` that is not flat and a 6-frame GIF."""
+    """`guided_diffusion_sample(**kwargs)` on `models` (by default with
+    `PROMPT` and seed 1234), with the kernel counts zeroed just before and
+    read just after; checks mode B once per executed step and mode A never,
+    finite UNet outputs every step, a final PNG of `shape` that is not flat
+    and a 6-frame GIF."""
+    kwargs = {"prompt": PROMPT, "seed": 1234, **kwargs}
     finite = []  # device booleans, read after the run so the hook adds no sync
     hook = models.unet.register_forward_hook(
         lambda mod, inp, out: finite.append(torch.isfinite(out).all()))
@@ -436,14 +476,13 @@ def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
     _zero_launches()
     t0 = time.perf_counter()
     try:
-        result = guided_diffusion_sample(prompt=PROMPT, seed=1234, models=models,
-                                         uploader=uploader, output_dir=out_dir, **kwargs)
+        result = guided_diffusion_sample(models=models, uploader=uploader, output_dir=out_dir,
+                                         **kwargs)
         torch.cuda.synchronize()
     finally:
         hook.remove()
     wall = time.perf_counter() - t0
-    launches = {"histogram_quantile": histogram_quantile.launches,
-                "histogram_abs_quantile": histogram_abs_quantile.launches}
+    launches = _launches()
     peak = torch.cuda.max_memory_allocated()
 
     if launches != {"histogram_quantile": 0, "histogram_abs_quantile": executed}:
@@ -463,7 +502,7 @@ def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
           f"(positions 1-5); peak memory {peak / 2**30:.2f} GiB; "
           f"quantile kernel launches {launches}; image {result['images'][0]}", flush=True)
     return {"steps": executed, "wall_s": wall, "step_ms": step_ms, "peak_bytes": peak,
-            "launches": launches}
+            "launches": launches, "image": result["images"][0]}
 
 
 def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
@@ -509,6 +548,231 @@ def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
     print("init-image path: LPIPS, MS-SSIM and the aesthetic heads of "
           + ", ".join(models.aesthetic) + " computed at each of the 10 steps", flush=True)
     return dict(run, models=models, config=config, init_png=init_png, sampler=sampler)
+
+
+def _read_names(kind: str) -> list:
+    with open(os.path.join(BANKS, f"{kind}_names.txt"), encoding="utf-8") as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def device_ms_by_class(fn, calls: int = 2):
+    """torch.profiler over `calls` calls of `fn` (after a warm-up session):
+    device ms per call by kernel class, and device operations per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]):  # the first session may drop events
+        fn()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_class, ops = {}, 0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            cls = _kernel_class(evt.name)
+            by_class[cls] = by_class.get(cls, 0.0) + evt.time_range.elapsed_us() / 1e3 / calls
+            ops += 1
+    return by_class, ops / calls
+
+
+def _classes(by_class: dict) -> str:
+    return ", ".join(f"{k} {v:.2f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1]))
+
+
+def check_t5_bank(dev, bank) -> None:
+    """The shipped modifier bank's query encoder, the full-width sentence-T5
+    (float32, seed 0) on the card, embeds the 120 modifier names in one
+    batch: within 1e-4 (max abs) of data/banks/modifiers_t5.npy, which the
+    JAX package's tower wrote, and each name retrieves its own row first."""
+    model = bank.encoder.model
+    names = _read_names("modifiers")
+    ref = np.load(os.path.join(BANKS, "modifiers_t5.npy"))
+    toks = torch.from_numpy(t5_tokenize(names)).to(dev, torch.long)
+    with torch.no_grad():
+        emb = model(toks)
+        ms = cuda_ms(lambda: model(toks), iters=10, warmup=2)
+        classes, ops = device_ms_by_class(lambda: model(toks), calls=3)
+    err = float(np.abs(emb.cpu().numpy() - ref).max())
+    _, idx = bank.index.search(emb, 1)
+    own = int((idx[:, 0] == np.arange(len(names))).sum())
+    n_params = _param_count(model)
+    if (n_params, own, bank.keywords) != (T5_PARAMS, len(names), names) or not err <= 1e-4:
+        raise AssertionError(f"sentence-T5 vs modifiers_t5.npy: {n_params} parameters, max |diff| "
+                             f"{err:.3e}, {own}/{len(names)} names retrieve their own row")
+    print(f"sentence-T5 ({n_params:,} parameters, f32): {len(names)} modifier names "
+          f"{tuple(toks.shape)} in {ms:.2f} ms as called, device {sum(classes.values()):.2f} ms "
+          f"in {ops:.0f} device ops ({_classes(classes)}); max |diff| to modifiers_t5.npy "
+          f"{err:.3e}; {own}/{len(names)} retrieve their own row", flush=True)
+
+
+def check_clip_text_banks(dev, zoo: ZooModels) -> None:
+    """The zoo's bf16 ViT-B/16 and ViT-L/14 text towers embed the style and
+    media names; L2-normalized, each row's cosine to its row of
+    {styles,media}_<tower>.npy (written by the JAX package's float32
+    towers) is >= 0.999 and each name retrieves its own row first."""
+    for tower in ("ViT-B/16", "ViT-L/14"):
+        model = zoo.clips[tower]
+        for kind in ("styles", "media"):
+            names = _read_names(kind)
+            ref = np.load(os.path.join(BANKS, f"{kind}_{tower.replace('/', '_')}.npy"))
+            toks = torch.from_numpy(tokenize(names)).to(dev, torch.long)
+            with torch.no_grad():
+                emb = l2_normalize(model.encode_text(toks))
+            cos = (emb * torch.from_numpy(ref).to(dev)).sum(dim=-1)
+            _, idx = EmbeddingIndex(ref, dev).search(emb, 1)
+            own = int((idx[:, 0] == np.arange(len(names))).sum())
+            worst = float(cos.min())
+            if not worst >= 0.999 or own != len(names):
+                raise AssertionError(f"{tower} {kind}: min cosine {worst:.6f}, "
+                                     f"{own}/{len(names)} retrieve their own row")
+            print(f"{tower} (bf16) {kind}: {len(names)} names, cosine to the bank min {worst:.6f} "
+                  f"mean {float(cos.mean()):.6f}; {own}/{len(names)} retrieve their own row",
+                  flush=True)
+
+
+def check_marian(dev) -> None:
+    """MarianMT (opus-mt-zh-en at full width), host-initialized with
+    MARIAN_SEED in float32, on the card against a copy of it on the CPU:
+    teacher-forced logits of ZH_PROMPTS (tw2sp, then tokenized) within
+    1e-3 of their max |value|; greedy ids to 64 tokens equal, or else the
+    first difference must be a near-tie (the CPU's top-2 logit gap there
+    within twice the logits' tolerance), printed as such; then a Prompt
+    through this model's translator gives non-empty text."""
+    cfg = MarianConfig.opus_zh_en()
+    t0 = time.perf_counter()
+    cpu_model = init_marian(cfg, seed=MARIAN_SEED, device="cpu")
+    init_s = time.perf_counter() - t0
+    model = copy.deepcopy(cpu_model).to(dev)
+    n_params = _param_count(model)
+    if n_params != MARIAN_PARAMS:
+        raise AssertionError(f"MarianMT has {n_params} parameters, expected {MARIAN_PARAMS}")
+    src = torch.from_numpy(marian_tokenize([tw_to_simplified(p) for p in ZH_PROMPTS], cfg=cfg)).long()
+    tgt = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size - 2, (len(ZH_PROMPTS), 16))).long()
+    tgt[:, 0] = cfg.decoder_start_token_id
+    with torch.no_grad():
+        ref = cpu_model(src, tgt)
+        got = model(src.to(dev), tgt.to(dev)).cpu()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"MarianMT logits card vs CPU: max |diff| {err:.3e}, scale {scale:.3e}")
+
+    ids_cpu = greedy_decode(cpu_model, src, max_len=64)
+    ids = greedy_decode(model, src, max_len=64)
+    wall_ms = cuda_ms(lambda: greedy_decode(model, src, max_len=64), iters=3, warmup=1)
+    classes, ops = device_ms_by_class(lambda: greedy_decode(model, src, max_len=64))
+    diff = (ids.cpu() != ids_cpu).nonzero()
+    if len(diff):
+        b, i = (int(v) for v in diff[0])
+        buf = torch.full((len(ZH_PROMPTS), 65), cfg.pad_token_id, dtype=torch.long)
+        buf[:, 0] = cfg.decoder_start_token_id
+        buf[:, 1:i + 1] = ids_cpu[:, :i]
+        with torch.no_grad():
+            row = cpu_model.decode(buf, cpu_model.encode(src), src)[b, i]
+        row[cfg.pad_token_id] = -torch.inf
+        top2 = torch.topk(row, 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"MarianMT greedy ids differ first at prompt {b}, token {i}: a near-tie, the "
+              f"CPU's top-2 logit gap there is {gap:.3e} (logits agree within {err:.3e})",
+              flush=True)
+        if gap > 2 * 1e-3 * scale:
+            raise AssertionError(f"MarianMT greedy ids differ at ({b}, {i}) with a top-2 gap "
+                                 f"{gap:.3e}: not a near-tie")
+    text = Prompt(ZH_PROMPTS[0], translator=marian_translator(model), device=dev).text
+    if not text.strip():
+        raise AssertionError("Prompt through the MarianMT translator gave empty text")
+    print(f"MarianMT ({n_params:,} parameters, f32, host init {init_s:.1f} s): teacher-forced "
+          f"logits {tuple(got.shape)} card vs CPU max |diff| {err:.3e} (scale {scale:.3e}); greedy "
+          f"ids to 64 tokens {'equal' if not len(diff) else 'differ at a near-tie'} "
+          f"({tuple(ids.shape)}); decode of {len(ZH_PROMPTS)} prompts {wall_ms:.1f} ms as called, "
+          f"device {sum(classes.values()):.2f} ms in {ops:.0f} device ops ({_classes(classes)}); "
+          f"Prompt via its translator: {text[:60]!r}", flush=True)
+
+
+def run_auto_modifier_request(dev, bank, models: ZooModels, config: Config, steps: int,
+                              out_dir: str) -> dict:
+    """`guided_diffusion_sample` with a Traditional-Chinese prompt,
+    use_auto_modifiers and num_modifiers=2 (seed 0) on `models` at `config`:
+    `new_prompt` must equal tw_to_simplified(prompt) + ", kw1, kw2" + the
+    suffix, kw1 and kw2 the bank's top 2 for that text computed here apart;
+    mode B once per step (run_path's checks)."""
+    prompt = ZH_PROMPTS[0]
+    simplified = tw_to_simplified(prompt)
+    _, kws = bank.topk(simplified, 2)
+    expected = simplified + "".join(f", {kw}" for kw in kws) + ARTSTATION_SUFFIX
+    run = run_path("auto-modifier request", models, steps, (config.height, config.width, 3),
+                   out_dir, prompt=prompt, seed=0, use_auto_modifiers=True, num_modifiers=2,
+                   steps=steps, config=config, device=dev)
+    got = get_task_state("new_prompt")
+    if got != expected:
+        raise AssertionError(f"new_prompt {got!r}, expected {expected!r}")
+    print(f"auto-modifier request: new_prompt {got!r}", flush=True)
+    return run
+
+
+def check_analysis(dev, zoo: ZooModels, image_path: str, out_dir: str) -> dict:
+    """The analyzer over the zoo's ViT-B/16 and ViT-L/14 and the shipped
+    banks on `image_path`: 3 styles and 3 media from the name lists, finite
+    scores; then CLIP scores of that image on the zoo's four towers and a
+    score suite of PROMPT_SUITE[:2] sampled at 256x256 for 5 steps on the
+    zoo (the tool's sampler, no rebuild), its mode B launches counted."""
+    bank = load_analysis_bank()
+    analyzer = make_analyzer(zoo)
+    with Image.open(image_path) as im:
+        img = np.asarray(im.convert("RGB"), np.float32) / 255.0
+    out = analyzer(img)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        out = analyzer(img)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    for kind, names in (("styles", bank.style_names), ("media", bank.media_names)):
+        if len(out[kind]) != 3 or not all(n in names and np.isfinite(s) for s, n in out[kind]):
+            raise AssertionError(f"analyzer {kind}: {out[kind]}")
+    print(f"analyzer (ViT-B/16 + ViT-L/14, bf16) on {os.path.basename(image_path)}: {ms:.1f} ms "
+          f"per call; styles {out['styles']}; media {out['media']}", flush=True)
+
+    towers = zoo_subset(zoo, Config().chosen_clip_models)
+    scores = clip_scores(towers.clips, img, PROMPT)
+    print(f"CLIP scores of that image: {json.dumps(scores)}", flush=True)
+    config = Config(width=256, height=256)
+    _zero_launches()
+    t0 = time.perf_counter()
+    rows, mean = score_suite(towers.clips, suite_sampler(towers, config, 5, 0, dev, out_dir),
+                             PROMPT_SUITE[:2])
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": 10}:
+        raise AssertionError(f"score suite: quantile kernel launches in 2 x 5 steps: {launches}")
+    values = [v for _, r in rows for kind in r.values() for v in kind.values()]
+    if not np.isfinite(values).all():
+        raise AssertionError(f"score suite: {rows}")
+    for p, r in rows:
+        print(f"suite {p!r}: cosine {r['cosine']}, spherical {r['spherical']}", flush=True)
+    print(f"score suite: 2 prompts x 5 steps at 256x256 in {wall:.2f} s, suite cosine mean {mean}; "
+          f"quantile kernel launches {launches}; provenance {json.dumps(provenance_summary())}",
+          flush=True)
+    return launches
+
+
+def run_text_front_end(dev, zoo: ZooModels, main_models: ZooModels, main_config: Config,
+                       steps: int, main_image: str, out_dir: str) -> dict:
+    """The text front end phase (module docstring, phase 9); returns the
+    launch counts of its two guided paths."""
+    t0 = time.perf_counter()
+    bank = load_modifier_bank(device=dev)
+    print(f"modifier bank loaded in {time.perf_counter() - t0:.1f} s "
+          f"({len(bank.keywords)} keywords, sentence-T5 on {dev})", flush=True)
+    check_t5_bank(dev, bank)
+    check_clip_text_banks(dev, zoo)
+    check_marian(dev)
+    auto = run_auto_modifier_request(dev, bank, main_models, main_config, steps,
+                                     os.path.join(out_dir, "auto"))
+    suite = check_analysis(dev, zoo, main_image, os.path.join(out_dir, "suite"))
+    print(f"text front end: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"auto-modifier request": auto["launches"], "clip-score suite": suite}
 
 
 # kernel-name fragments -> class, first match wins (cuDNN, cuBLAS and the
@@ -628,13 +892,18 @@ def profile_steps(dev, label: str, models, config, n_steps: int, out_dir: str,
               f"profiled device ms/step", flush=True)
 
 
-def _check_no_launches(label: str) -> None:
+def _launches() -> dict:
+    return {"histogram_quantile": histogram_quantile.launches,
+            "histogram_abs_quantile": histogram_abs_quantile.launches}
+
+
+def _check_no_launches(label: str) -> dict:
     """The latent paths reach no port kernel: both quantile modes at 0."""
-    launches = {"histogram_quantile": histogram_quantile.launches,
-                "histogram_abs_quantile": histogram_abs_quantile.launches}
+    launches = _launches()
     if any(launches.values()):
         raise AssertionError(f"{label}: quantile kernel launched {launches}")
     print(f"{label}: quantile kernel launches {launches}", flush=True)
+    return launches
 
 
 def check_latent_reference(dev) -> None:
@@ -701,7 +970,8 @@ def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
     finiteness and its host time; the VQ decoder's `post_quant_conv` and
     `decoder` and the upscaler synchronize around themselves, so each
     iteration's sampling time runs from its first UNet forward to its
-    decode, which waits for the device."""
+    decode, which waits for the device.  Returns the quantile launch
+    counts (both 0)."""
     vq = pipe.decode.__self__
     forwards, finite, batches = [], [], []
     dec = {"start": [], "end": []}
@@ -741,7 +1011,7 @@ def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
             h.remove()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    _check_no_launches("latent request")
+    launches = _check_no_launches("latent request")
 
     steps, iters, images = 50, 3, 9
     if len(finite) != steps * iters or set(batches) != {6} or not all(bool(f) for f in finite):
@@ -768,15 +1038,16 @@ def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
           f"{np.mean(up_s) * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; grid "
           f"{grid.shape}; {len(sr)} SR PNGs at 1024x1024; image stds "
           + ", ".join(f"{x:.1f}" for x in stds), flush=True)
-    return {"wall_s": wall, "step_ms": step_ms, "peak_bytes": peak}
+    return launches
 
 
-def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> None:
+def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> dict:
     """`latent_diffusion_sample` inpainting: an init PNG (seeded 8x8 blocks)
     and a mask PNG (white top half: keep), PLMS, 20 steps, 1 iteration x 2
     images, on the zoo's stack with its decode wrapped to keep the final
     latents.  The kept region must end nearer the init latent than the free
-    region (mean |z - z_init|)."""
+    region (mean |z - z_init|).  Returns the quantile launch counts (both
+    0)."""
     os.makedirs(out_dir, exist_ok=True)
     coarse = np.random.default_rng(12).uniform(0, 255, (8, 8, 3))
     init_png = os.path.join(out_dir, "init.png")
@@ -807,7 +1078,7 @@ def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> None:
     finally:
         hook.remove()
     wall = time.perf_counter() - t0
-    _check_no_launches("inpainting path")
+    launches = _check_no_launches("inpainting path")
     if len(finite) != 20 or not all(bool(f) for f in finite) or len(result["images"]) != 2:
         raise AssertionError(f"inpainting path: {len(finite)} forwards, "
                              f"{len(result['images'])} images")
@@ -823,6 +1094,7 @@ def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> None:
     print(f"inpainting path: PLMS 20 steps x 2 images in {wall:.2f} s; mean |z - z_init| "
           f"kept {kept:.4f}, free {free:.4f} (mask keeps {int(mask.sum())} of 1024 latent "
           f"pixels); images {result['images']}", flush=True)
+    return launches
 
 
 def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
@@ -943,15 +1215,22 @@ def main(argv=None) -> int:
         rec["launches"] = main_run["launches"][rec["name"]]
         if QUANTILE_KERNELS[rec["name"]]["on_path"] and rec["launches"] == 0:
             raise AssertionError(f"{rec['name']} was not launched on the main path")
+    by_path = {"main path": main_run["launches"]}
 
     phase("default request", t_start)
     default = Config()
     default_models = zoo_subset(zoo, default.chosen_clip_models)
-    run_path("default request", default_models, args.steps, (default.height, default.width, 3),
-             os.path.join(args.out, "default"), steps=args.steps)  # no config: Config()
+    by_path["default request"] = run_path(
+        "default request", default_models, args.steps, (default.height, default.width, 3),
+        os.path.join(args.out, "default"), steps=args.steps)["launches"]  # no config: Config()
 
     phase("init-image path", t_start)
     init_run = run_init_path(zoo, os.path.join(args.out, "init"))
+    by_path["init-image path"] = init_run["launches"]
+
+    phase("text front end", t_start)
+    by_path.update(run_text_front_end(dev, zoo, main_models, main_config, args.steps,
+                                      main_run["image"], os.path.join(args.out, "text")))
 
     phase("profile", t_start)
     profile_steps(dev, "main", main_models, main_config, 2, args.out)
@@ -963,15 +1242,19 @@ def main(argv=None) -> int:
     latent_pipe, text_encode, esrgan = build_latent_zoo(dev)
 
     phase("latent request", t_start)
-    run_latent_request(dev, latent_pipe, esrgan, os.path.join(args.out, "latent"))
+    by_path["latent request"] = run_latent_request(dev, latent_pipe, esrgan,
+                                                   os.path.join(args.out, "latent"))
 
     phase("inpainting path", t_start)
-    run_inpainting_path(dev, latent_pipe, text_encode, os.path.join(args.out, "inpaint"))
+    by_path["inpainting path"] = run_inpainting_path(dev, latent_pipe, text_encode,
+                                                     os.path.join(args.out, "inpaint"))
 
     phase("latent profile", t_start)
     profile_latent(dev, latent_pipe, text_encode, esrgan, args.out)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    for rec in records:
+        rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,8 @@ port's `state_dict` keys, which follow the reference torch checkpoints:
   `text_projection`; BERT `pos_emb`; the VQ `codebook` -> the same array
 * BERT fused `qkv` kernel (in, 3 * inner) -> to_q, to_k and to_v weights,
   one third each, transposed (several port keys read one JAX leaf)
+* T5 RMSNorm `weight`, `rel_bias` (buckets, heads) and Marian's
+  `final_logits_bias` -> the same array
 
 It is the inverse of the JAX package's converters (`models/convert.py`,
 `models/ldm/convert.py`), written independently of them.  Loading fails on any JAX leaf left unused and on any
@@ -310,6 +312,46 @@ def esrgan_rule(key: str) -> Tuple[Path, str]:
     return (parts[0], name), kind
 
 
+def t5_rule(key: str) -> Tuple[Path, str]:
+    """Port sentence-T5 key -> JAX path (flax names the RMSNorm leaf
+    `weight` and the final norm `final_ln`)."""
+    parts = key.split(".")
+    if key == "shared.weight":
+        return ("shared", "embedding"), "same"
+    if key == "final_layer_norm.weight":
+        return ("final_ln", "weight"), "same"
+    if key == "projection.weight":
+        return ("projection", "kernel"), "dense"
+    block = f"block_{parts[1]}"  # block.N.<sub>...
+    if parts[2] in ("ln1", "ln2"):
+        return (block, parts[2], "weight"), "same"
+    if parts[2] in ("wi", "wo"):
+        return (block, parts[2], "kernel"), "dense"
+    if parts[3] == "relative_attention_bias":
+        return (block, "attn", "rel_bias"), "same"
+    return (block, "attn", parts[3], "kernel"), "dense"  # attn.{q,k,v,o}
+
+
+def marian_rule(key: str) -> Tuple[Path, str]:
+    """Port MarianMT key (HF names without `model.`) -> JAX path; fc1 and
+    fc2 sit under the layer's `ffn` in flax."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if key == "shared.weight":
+        return ("shared", "embedding"), "same"
+    if key == "final_logits_bias":
+        return ("final_logits_bias",), "same"
+    layer = ("enc_" if parts[0] == "encoder" else "dec_") + parts[2]  # {en,de}coder.layers.N
+    sub = parts[3]
+    if sub.endswith("layer_norm"):
+        name, kind = _leaf(leaf, "norm")
+        return (layer, sub, name), kind
+    name, kind = _leaf(leaf, "dense")
+    if sub in ("fc1", "fc2"):
+        return (layer, "ffn", sub, name), kind
+    return (layer, sub, parts[4], name), kind  # {self,encoder}_attn.{q,k,v,out}_proj
+
+
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     flat = {}
     for k, v in tree.items():
@@ -406,3 +448,11 @@ def load_bert(module: nn.Module, tree: Mapping) -> nn.Module:
 
 def load_esrgan(module: nn.Module, tree: Mapping) -> nn.Module:
     return load_into(module, tree, esrgan_rule)
+
+
+def load_t5(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, t5_rule)
+
+
+def load_marian(module: nn.Module, tree: Mapping) -> nn.Module:
+    return load_into(module, tree, marian_rule)

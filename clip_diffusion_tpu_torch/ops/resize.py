@@ -87,6 +87,16 @@ def crop_resize(image: torch.Tensor, y0, x0, h_size, w_size, out_size: int,
     return out.to(image.dtype)
 
 
+def resize_center_crop(image: torch.Tensor, out_size: int,
+                       method: Method = "cubic") -> torch.Tensor:
+    """Resize the shorter side to `out_size`, then center-crop: one
+    antialiased resample of the centered short-side square window of the
+    HWC image, with no intermediate image."""
+    h, w = image.shape[0], image.shape[1]
+    s = min(h, w)
+    return crop_resize(image, (h - s) / 2.0, (w - s) / 2.0, s, s, out_size, method)
+
+
 def pad_to_square_resize(image: torch.Tensor, out_size: int,
                          method: Method = "cubic") -> torch.Tensor:
     """Zero-pad an HWC image to a centered square of its longer side, then

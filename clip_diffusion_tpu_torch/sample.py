@@ -2,9 +2,10 @@
 
 `guided_diffusion_sample` and `latent_diffusion_sample` keep the JAX
 package's keyword arguments and return dicts, plus `device=` (default
-`cuda`; the CPU only when asked).  Not yet ported, and raising
-`NotImplementedError`: auto modifiers and `custom_model_params` (they wait
-for the text front end and checkpoint loading).
+`cuda`; the CPU only when asked).  Chinese prompts are translated and
+`use_auto_modifiers` appends retrieved keywords (`text/prompt.py`).  Not
+yet ported, and raising `NotImplementedError`: `custom_model_params` (it
+waits for checkpoint loading).
 """
 
 from __future__ import annotations
@@ -72,6 +73,9 @@ def guided_diffusion_sample(
     [urls], "seed": int}.
 
     `models`: a `zoo.ZooModels` built on `device` (built here when None).
+    With `use_auto_modifiers`, the prompt gains the top `num_modifiers`
+    keywords of `modifier_bank` (default: the shipped bank, its sentence-T5
+    on `device`), stored as the task state's `new_prompt`.
     `init_image` (a path or encoded bytes) is resized to the canvas; with it
     the LPIPS (when `LPIPS_scale > 0`) and MS-SSIM (when `MS_SSIM_scale >
     0`) terms pull the trajectory towards it.
@@ -90,7 +94,9 @@ def guided_diffusion_sample(
     batch_folder = os.path.join(output_dir, "guided")
     os.makedirs(batch_folder, exist_ok=True)
 
-    p = Prompt(prompt, use_auto_modifiers, num_modifiers, modifier_bank)
+    p = Prompt(prompt, use_auto_modifiers, num_modifiers, modifier_bank, device=device)
+    if use_auto_modifiers:
+        store_task_state("new_prompt", p.text)
 
     init = None
     if init_image is not None:

@@ -6,7 +6,8 @@ CLIP perceptors by name, build the ADM UNet, the aesthetic heads and LPIPS,
 embed the prompt per perceptor.  For the latent request: the LDM UNet
 (seed, `param_dtype`), the VQ-f8 first stage (seed + 1, float32) and the
 BERT encoder (seed + 2, `param_dtype`), and Real-ESRGAN (seed 2000,
-float32).  Real checkpoints are not in the repository
+float32).  For the text front end: the sentence-T5 encoder (seed, float32)
+and MarianMT (`init_marian`).  Real checkpoints are not in the repository
 yet, so every model is randomly initialized host-side with numpy by the JAX
 zoo's rules (`_host_init`): `scale` and any leaf whose name holds `var` ->
 ones, `bias` and `mean` -> zeros (these draw no random numbers), everything
@@ -19,6 +20,7 @@ same seed therefore gives the same weights as the JAX zoo.
 from __future__ import annotations
 
 import dataclasses
+import os
 import zlib
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -32,12 +34,14 @@ from clip_diffusion_tpu_torch.diffusion.schedule import make_schedule
 from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.aesthetic import CLIP_DIMS, make_aesthetic_predictor
 from clip_diffusion_tpu_torch.models.clip.model import CLIP_PRESETS, CLIPModel
-from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
+from clip_diffusion_tpu_torch.models.clip.tokenizer import default_bpe_path, get_tokenizer, tokenize
 from clip_diffusion_tpu_torch.models.esrgan import RRDBNet
 from clip_diffusion_tpu_torch.models.ldm.autoencoder import VQConfig, VQModel
 from clip_diffusion_tpu_torch.models.ldm.bert import BERTConfig, BERTEmbedder, bert_tokenize
 from clip_diffusion_tpu_torch.models.ldm.unet import LDMUNet, LDMUNetConfig
 from clip_diffusion_tpu_torch.models.lpips import LPIPS
+from clip_diffusion_tpu_torch.models.marian import MarianConfig, MarianMT
+from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.pipeline.guided import GuidedPipeline, Perceptor
 from clip_diffusion_tpu_torch.pipeline.latent import LatentPipeline
@@ -265,3 +269,47 @@ def build_esrgan(scale: int = 4, seed: int = 2000, tiny: bool = False,
     else:
         build = lambda: RRDBNet(scale=scale)
     return _materialize(build, from_jax.esrgan_rule, seed, torch.float32, resolve_device(device))
+
+
+def load_or_init_sentence_t5(param_dtype=torch.float32, seed: int = 0,
+                             device=None) -> SentenceT5:
+    """The full-width sentence-T5 on `device` (default `cuda`), randomly
+    initialized as the JAX package's `load_or_init_sentence_t5` does
+    without converted weights: the one tower the query encoder and the
+    committed modifier bank (data/banks/modifiers_t5.npy) share.  Converted
+    weights at `T5_PARAMS_PATH` (default data/t5/params) cannot be loaded
+    yet: a present directory raises rather than serving random weights."""
+    path = os.environ.get("T5_PARAMS_PATH", "data/t5/params")
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"sentence-T5 weights at {path}: checkpoint loading is not ported yet "
+            "(ROADMAP Queue 1 item 13)"
+        )
+    return _materialize(lambda: SentenceT5(T5Config()), from_jax.t5_rule, seed, param_dtype,
+                        resolve_device(device))
+
+
+def init_marian(cfg: Optional[MarianConfig] = None, seed: int = 0, device=None) -> MarianMT:
+    """MarianMT (default: the opus-mt-zh-en geometry) on `device` (default
+    `cuda`), randomly initialized by the JAX zoo's rule with float32
+    parameters (`cfg.dtype` sets the compute precision); stands in for the
+    converted weights until checkpoint loading is ported."""
+    cfg = cfg or MarianConfig.opus_zh_en()
+    return _materialize(lambda: MarianMT(cfg), from_jax.marian_rule, seed, torch.float32,
+                        resolve_device(device))
+
+
+def weights_provenance() -> dict:
+    """Whether scores from this process compare with the reference's: every
+    tree the port serves is a random-init stand-in (checkpoint loading is
+    not ported yet), and the CLIP tokenizer is the real BPE table only when
+    that file is present."""
+    if get_tokenizer.cache_info().currsize:
+        real_bpe = type(get_tokenizer()).__name__ == "SimpleTokenizer"
+    else:  # nothing tokenized yet: what would be used
+        real_bpe = default_bpe_path() is not None
+    return {
+        "weights": "random-init stand-in (not reference-comparable)",
+        "tokenizer": "real-bpe" if real_bpe else "hash-standin",
+        "reference_comparable": False,
+    }

@@ -1,5 +1,6 @@
 """The port's CUDA kernel, the ops whose GPU sums run in no fixed order,
-and the tiny latent stack, on the card: it imports neither JAX nor the JAX
+the tiny latent stack and the text front end (tiny sentence-T5 and
+MarianMT, retrieval), on the card: it imports neither JAX nor the JAX
 package, so a machine with a GPU and no JAX runs it with
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -14,7 +15,11 @@ import pytest
 import torch
 
 from clip_diffusion_tpu_torch import zoo
+from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.esrgan import upscale
+from clip_diffusion_tpu_torch.models.marian import MarianConfig, greedy_decode, marian_tokenize
+from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, t5_tokenize
+from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.ops.augment import affine_gather
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, latent_sample
@@ -203,3 +208,46 @@ def test_esrgan_tiled_equals_whole_on_card(cuda):
     torch.testing.assert_close(tiled, whole, rtol=0, atol=1e-6)
     cpu = upscale(zoo.build_esrgan(tiny=True, device="cpu"), img)
     torch.testing.assert_close(whole.cpu(), cpu, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tiny_text_models_on_card_match_cpu(cuda):
+    """Tiny sentence-T5 (random init by the zoo's rule) on the card against
+    the CPU: embeddings within 1e-4; tiny MarianMT: teacher-forced logits
+    within 1e-4 and greedy ids equal token for token."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    texts = ["a castle on a hill", "by Greg Rutkowski", "x", "一只 猫"]
+    toks = torch.from_numpy(t5_tokenize(texts)).long()
+    t5 = {dev: zoo._materialize(lambda: SentenceT5(T5Config.tiny()), from_jax.t5_rule, 4,
+                                torch.float32, dev) for dev in ("cpu", cuda)}
+    with torch.no_grad():
+        emb_cpu, emb_gpu = t5["cpu"](toks), t5[cuda](toks.to(cuda)).cpu()
+    torch.testing.assert_close(emb_gpu, emb_cpu, rtol=0, atol=1e-4)
+
+    cfg = MarianConfig.tiny()
+    src = torch.from_numpy(marian_tokenize(texts, 12, cfg)).long()
+    marian = {dev: zoo.init_marian(cfg, seed=5, device=dev) for dev in ("cpu", cuda)}
+    with torch.no_grad():
+        logits_cpu = marian["cpu"](src, src[:, :6])
+        logits_gpu = marian[cuda](src.to(cuda), src[:, :6].to(cuda)).cpu()
+    torch.testing.assert_close(logits_gpu, logits_cpu, rtol=0, atol=1e-4)
+    ids_cpu = greedy_decode(marian["cpu"], src, max_len=24)
+    ids_gpu = greedy_decode(marian[cuda], src.to(cuda), max_len=24)
+    assert ids_gpu.device.type == "cuda"
+    torch.testing.assert_close(ids_gpu.cpu(), ids_cpu, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_embedding_index_on_card_matches_cpu(cuda):
+    """The retrieval product and top-k on the card over unit vectors, as the
+    shipped banks hold: the CPU's indices (no near-ties in these draws) and
+    scores within 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    bank, queries = (x / np.linalg.norm(x, axis=-1, keepdims=True)
+                     for x in (rng.normal(size=(397, 768)).astype(np.float32),
+                               rng.normal(size=(6, 768)).astype(np.float32)))
+    s_cpu, i_cpu = EmbeddingIndex(bank, "cpu").search(queries, 5)
+    s_gpu, i_gpu = EmbeddingIndex(bank, cuda).search(queries, 5)
+    np.testing.assert_array_equal(i_gpu, i_cpu)
+    np.testing.assert_allclose(s_gpu, s_cpu, atol=1e-5)

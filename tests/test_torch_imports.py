@@ -27,4 +27,4 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 40, proc.stdout
+    assert n_modules >= 49, proc.stdout
