@@ -21,14 +21,21 @@ Phases, each announced on its own line; any failure exits non-zero:
    random init), the ViT-B/32, ViT-B/16, ViT-L/14 and RN101 perceptors at
    preset widths, the aesthetic heads of the three ViTs and LPIPS.  Each
    path below takes its models from it;
-6. main path: `guided_diffusion_sample` at 512x512, DDIM, 10 steps, the
+6. checkpoints: the main path's UNet (557,973,638 parameters, attention
+   weights re-shaped to the release's Conv1d) and its three ViT towers
+   written in bf16 as public-release files (1,286,488,198 parameters), then
+   `build_models(checkpoint_root=...)` from them: every parameter equal to
+   the in-memory zoo's, the four slots in `weights_provenance()["loaded"]`,
+   a truncated file and a JAX orbax slot without the port's file raising;
+   the bytes, load seconds and GB/s;
+7. main path: `guided_diffusion_sample` at 512x512, DDIM, 10 steps, the
    three ViT perceptors, 4 cutout batches;
-7. default request: `guided_diffusion_sample` with the default `Config`:
+8. default request: `guided_diffusion_sample` with the default `Config`:
    768x512, the four perceptors, 4 cutout batches, DDIM, eta 0.8, 10 steps;
-8. init-image path: an init PNG made here from a seeded array, PLMS, 20
+9. init-image path: an init PNG made here from a seeded array, PLMS, 20
    steps with 10 skipped, the aesthetic and MS-SSIM terms on and LPIPS at
    its default scale, at 768x512;
-9. text front end: the shipped modifier bank's full-width sentence-T5
+10. text front end: the shipped modifier bank's full-width sentence-T5
    (float32) on the card embeds the 120 modifier names within 1e-4 of
    data/banks/modifiers_t5.npy, each retrieving its own row; the zoo's
    bf16 ViT-B/16 and ViT-L/14 text towers embed the style and media names
@@ -41,31 +48,41 @@ Phases, each announced on its own line; any failure exits non-zero:
    main path's towers and canvas, its `new_prompt` predicted apart; the
    analyzer (ViT-B/16 + ViT-L/14) on the main path's image; CLIP scores of
    that image and of a 2-prompt suite sampled at 256x256 for 5 steps;
-10. profile: two steps of each of the three guided paths timed, then run
+11. server: `ClipDiffusionServer` on the main path's zoo and config with a
+   registry that discovers a custom finetune (the UNet file with one
+   weight scaled) as `guided_unet_custom_landscape.pt`, driven over HTTP:
+   /seed, /model_types (landscape and 景觀 listed), two 10-step
+   /guided_sample requests (the default UNet, then model_type 景觀; a
+   second POST while busy answers 409), /task_state polled to the end, the
+   progress PNG fetched through /files/, the images differing and the zoo's
+   UNet bit-identical afterwards, 400 for an unknown model_type, and
+   /analyze_image on the first image; each request's wall seconds, the
+   analyze latency over HTTP and mode B's launches per request;
+12. profile: two steps of each of the three guided paths timed, then run
    under torch.profiler: device time by kernel class and by direction, the
    device's idle share, and each tower's device time over the step's cuts;
-11. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
+13. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
     RRDBNet x4) on the card against the same stack on the CPU, same weights
     and draws: a 5-step CFG DDIM txt2img and a 6-step PLMS inpainting, each
     decoded and upscaled x4;
-12. latent zoo: the full-width LDM UNet (bfloat16), VQ-f8 (float32) and
+14. latent zoo: the full-width LDM UNet (bfloat16), VQ-f8 (float32) and
     BERT (bfloat16) as `sample.default_latent_stack` builds them, and
     Real-ESRGAN x4 (float32), built once, with their parameter counts;
-13. latent request: `latent_diffusion_sample()` with no model arguments
+15. latent request: `latent_diffusion_sample()` with no model arguments
     (256x256, CFG DDIM, 50 steps, eta 0, guidance 5, 3 iterations x 3
     images) and the ESRGAN x4 upscaler: 150 finite UNet forwards at batch
     6, 9 PNGs, the grid and 9 upscales at 1024x1024;
-14. inpainting path: an init PNG and a mask PNG made here from seeded
+16. inpainting path: an init PNG and a mask PNG made here from seeded
     arrays, PLMS, 20 steps, 1 iteration x 2 images: the kept region's final
     latent must stay nearer the init latent than the free region's;
-15. latent profile: two CFG steps of the request timed, then run under
+17. latent profile: two CFG steps of the request timed, then run under
     torch.profiler (device ms per step, idle share, device time by kernel
     class, achieved FLOP/s), the VQ decode's device time, and one ESRGAN x4
     call per image, whole and tiled.
 
 On every path the kernel launch counts are zeroed just before it runs and
-read just after: on the guided paths (the auto-modifier request and the
-score suite's samples included) mode B of the quantile kernel once per
+read just after: on the guided paths (the auto-modifier request, the
+score suite's samples and the server's requests included) mode B of the quantile kernel once per
 executed step, mode A never; on the latent paths neither mode.
 
 Then one JSON line {"kernels": [...]} (each kernel's launches on the main
@@ -84,9 +101,14 @@ import dataclasses
 import glob
 import json
 import os
+import base64
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -101,6 +123,7 @@ from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.aesthetic import LinearAestheticPredictor
 from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_config
 from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
+from clip_diffusion_tpu_torch.models.convert import release_unet_state_dict
 from clip_diffusion_tpu_torch.models.esrgan import upscale
 from clip_diffusion_tpu_torch.models.marian import (
     MarianConfig,
@@ -122,6 +145,8 @@ from clip_diffusion_tpu_torch.parallel.serving import load_analysis_bank, make_a
 from clip_diffusion_tpu_torch.pipeline import guided as guided_mod
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
+from clip_diffusion_tpu_torch.runtime.registry import UNetRegistry
+from clip_diffusion_tpu_torch.runtime.server import ClipDiffusionServer
 from clip_diffusion_tpu_torch.sample import (
     default_latent_stack,
     guided_diffusion_sample,
@@ -144,9 +169,12 @@ from clip_diffusion_tpu_torch.zoo import (
     build_latent_pipeline,
     build_lpips,
     build_models,
+    build_clip,
     build_pipeline,
+    clip_checkpoint_name,
     host_init_state_dict,
     init_marian,
+    weights_provenance,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet) for the bound of each kernel.
@@ -163,6 +191,8 @@ LATENT_PARAMS = {"LDM UNet": 872300484, "VQ-f8": 67717295, "BERT": 542895360,
                  "RRDBNet x4": 16697987}
 # ... and of the text front end's towers at full width
 T5_PARAMS, MARIAN_PARAMS = 110218368, 77484009
+# the main path's UNet and three ViT towers, as release files
+GUIDED_RELEASE_PARAMS = 1286488198
 BANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "banks")
 ZH_PROMPTS = ("一隻可愛的貓坐在筆記型電腦旁", "夕陽下的燈塔 油畫", "龍 飛過 雪山")
 MARIAN_SEED = 7  # the stand-in MarianMT's host-init seed
@@ -458,6 +488,97 @@ def zoo_subset(zoo: ZooModels, names, with_extras: bool = False) -> ZooModels:
     return ZooModels(zoo.unet, {n: zoo.clips[n] for n in names},
                      {n: h for n, h in zoo.aesthetic.items() if n in names} if with_extras else {},
                      zoo.lpips if with_extras else None)
+
+
+def write_release_files(models: ZooModels, root: str) -> dict:
+    """The zoo's UNet and towers as public-release files under `root`, in
+    bf16: the UNet with its attention weights as Conv1d (O, I, 1), each
+    tower with OpenAI's `logit_scale`.  Returns {slot: path}."""
+    sds = {"guided_unet_512": release_unet_state_dict(models.unet.state_dict())}
+    for name, tower in models.clips.items():
+        sds[clip_checkpoint_name(name)] = {**tower.state_dict(),
+                                           "logit_scale": torch.tensor(4.6052)}
+    paths = {}
+    for slot, sd in sds.items():
+        paths[slot] = os.path.join(root, f"{slot}.pt")
+        torch.save({k: v.detach().to("cpu", torch.bfloat16) for k, v in sd.items()}, paths[slot])
+    return paths
+
+
+def _expect_refusal(label: str, build, *needles) -> str:
+    """`build()` must raise RuntimeError whose message holds every needle."""
+    try:
+        build()
+    except RuntimeError as e:
+        if not all(n in str(e) for n in needles):
+            raise AssertionError(f"{label}: message lacks {needles}: {e}") from e
+        return str(e).split(";")[0][:160]
+    raise AssertionError(f"{label}: no error")
+
+
+def check_checkpoints(dev, models: ZooModels, config: Config, root: str,
+                      expected_params: int = GUIDED_RELEASE_PARAMS) -> dict:
+    """The checkpoints phase (module docstring, phase 6).  `models` holds
+    the UNet and the towers of `config`; `root` is kept for the server
+    phase.  Returns the figures it prints."""
+    t0 = time.perf_counter()
+    paths = write_release_files(models, root)
+    save_s = time.perf_counter() - t0
+    n_bytes = sum(os.path.getsize(p) for p in paths.values())
+    n_params = sum(v.numel() for m in (models.unet, *models.clips.values())
+                   for v in m.state_dict().values())
+    if n_params != expected_params:
+        raise AssertionError(f"release parameters {n_params:,}, expected {expected_params:,}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = build_models(config, unet_config=models.unet.config, checkpoint_root=root,
+                          device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    pairs = [(models.unet, loaded.unet)] + [(models.clips[n], loaded.clips[n])
+                                            for n in config.chosen_clip_models]
+    for want, got in pairs:
+        got_sd = got.state_dict()
+        for k, v in want.state_dict().items():
+            if not (got_sd[k].device == v.device and torch.equal(got_sd[k], v)):
+                raise AssertionError(f"loaded {k} differs from the zoo's")
+    del loaded, pairs, got_sd  # at most one extra copy of the UNet on the card
+    torch.cuda.empty_cache()
+    provenance = weights_provenance()
+    if not set(paths) <= set(provenance["loaded"]):
+        raise AssertionError(f"provenance loaded {provenance['loaded']}, expected {sorted(paths)}")
+
+    name = config.chosen_clip_models[0]
+    slot = clip_checkpoint_name(name)
+    with tempfile.TemporaryDirectory() as scratch:
+        bad_root = os.path.join(scratch, "truncated")
+        os.makedirs(bad_root)
+        with open(paths[slot], "rb") as src, open(os.path.join(bad_root, f"{slot}.pt"), "wb") as dst:
+            dst.write(src.read(os.path.getsize(paths[slot]) // 2))
+        truncated = _expect_refusal("truncated file", lambda: build_clip(
+            name, device=dev, checkpoint_root=bad_root), "present but unusable", bad_root)
+        flax_root = os.path.join(scratch, "models", "flax")
+        os.makedirs(os.path.join(flax_root, slot))
+        before = os.environ.get("CLIP_DIFFUSION_FLAX")
+        os.environ["CLIP_DIFFUSION_FLAX"] = flax_root
+        try:
+            orbax = _expect_refusal("orbax slot without the port's file", lambda: build_clip(
+                name, device=dev, checkpoint_root=os.path.join(scratch, "empty")),
+                os.path.join(flax_root, slot), os.path.join(scratch, "empty", f"{slot}.pt"))
+        finally:
+            if before is None:
+                del os.environ["CLIP_DIFFUSION_FLAX"]
+            else:
+                os.environ["CLIP_DIFFUSION_FLAX"] = before
+    print(f"checkpoints: wrote {len(paths)} release files ({', '.join(paths)}), {n_params:,} "
+          f"parameters, {n_bytes:,} bytes (bf16) in {save_s:.2f} s; build_models from them in "
+          f"{load_s:.2f} s = {n_bytes / load_s / 1e9:.2f} GB/s; every parameter equal to the "
+          f"in-memory zoo's; provenance loaded {provenance['loaded']}", flush=True)
+    print(f"checkpoints: truncated {slot}.pt raises ({truncated!r}); an orbax slot without the "
+          f"port's file raises ({orbax!r})", flush=True)
+    return {"bytes": n_bytes, "params": n_params, "save_s": save_s, "load_s": load_s,
+            "paths": paths}
 
 
 def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
@@ -773,6 +894,122 @@ def run_text_front_end(dev, zoo: ZooModels, main_models: ZooModels, main_config:
     suite = check_analysis(dev, zoo, main_image, os.path.join(out_dir, "suite"))
     print(f"text front end: {time.perf_counter() - t0:.1f} s", flush=True)
     return {"auto-modifier request": auto["launches"], "clip-score suite": suite}
+
+
+def _http(port: int, path: str, body=None):
+    """(status, bytes, content type) of one request to the local server."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"}, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, r.read(), r.headers.get("Content-Type")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), e.headers.get("Content-Type")
+
+
+def _http_json(port: int, path: str, body=None, expect: int = 200):
+    status, data, _ = _http(port, path, body)
+    if status != expect:
+        raise AssertionError(f"{path}: HTTP {status}, expected {expect}: {data[:300]!r}")
+    return json.loads(data)
+
+
+def run_server(models: ZooModels, config: Config, root: str, steps: int,
+               out_dir: str) -> dict:
+    """The server phase (module docstring, phase 11) on `models` (the main
+    path's zoo) and `config`, with `root` holding the UNet's release file
+    from the checkpoints phase.  Returns each request's launch counts."""
+    unet_file = os.path.join(root, "guided_unet_512.pt")
+    custom = dict(torch.load(unet_file, map_location="cpu", weights_only=True, mmap=True))
+    custom["out.2.weight"] = custom["out.2.weight"] * 2  # a finetune of one weight
+    torch.save(custom, os.path.join(root, "guided_unet_custom_landscape.pt"))
+    del custom
+    before = {k: (v.data_ptr(), v.detach().cpu().clone())
+              for k, v in models.unet.state_dict().items()}
+
+    server = ClipDiffusionServer(port=0, config=config, models=models,
+                                 registry=UNetRegistry(models.unet).discover(root),
+                                 output_dir=out_dir)
+    server.start_background()
+    port, by_request, images = server.port, {}, {}
+    try:
+        seed = _http_json(port, "/seed")["seed"]
+        model_types = _http_json(port, "/model_types")["model_types"]
+        if not {"landscape", "景觀"} <= set(model_types):
+            raise AssertionError(f"/model_types {model_types}")
+        for label, extra in (("server default request", {}),
+                             ("server 景觀 request", {"model_type": "景觀"})):
+            body = {"prompt": PROMPT, "steps": steps, "seed": 1234, **extra}
+            _zero_launches()
+            t0 = time.perf_counter()
+            if not _http_json(port, "/guided_sample", body)["started"]:
+                raise AssertionError(f"{label}: not started")
+            post_s = time.perf_counter() - t0
+            busy = ""
+            if not extra:
+                _http_json(port, "/guided_sample", body, expect=409)
+                busy = "; a second POST while busy: 409"
+            polls = 0
+            while True:
+                state = _http_json(port, "/task_state")
+                polls += 1
+                if not state["busy"]:
+                    break
+                time.sleep(0.1)
+            wall = time.perf_counter() - t0
+            launches = _launches()
+            if state["error"] is not None:
+                raise AssertionError(f"{label}: {state['error']}")
+            if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+                raise AssertionError(f"{label}: quantile kernel launches in {steps} steps: "
+                                     f"{launches}")
+            status, png, ctype = _http(port, urllib.parse.urlparse(
+                state["current_result"]).path)
+            if status != 200 or ctype != "image/png" or png[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError(f"{label}: /files/ progress image: {status} {ctype}")
+            image_path = state["result"]["images"][0]
+            with Image.open(image_path) as im:
+                images[label] = np.asarray(im.convert("RGB"))
+            if images[label].shape != (config.height, config.width, 3):
+                raise AssertionError(f"{label}: image {images[label].shape}")
+            by_request[label] = launches
+            print(f"{label}: {steps} steps, wall {wall:.2f} s from POST to done (POST answered "
+                  f"in {post_s * 1e3:.1f} ms{busy}; {polls} polls); quantile kernel launches "
+                  f"{launches}; progress PNG via /files/ ({len(png):,} bytes); image "
+                  f"{image_path}", flush=True)
+        default, custom = images.values()
+        if np.array_equal(default, custom):
+            raise AssertionError("the 景觀 finetune gave the default request's image")
+        for k, v in models.unet.state_dict().items():
+            ptr, value = before[k]
+            if v.data_ptr() != ptr or not torch.equal(v.cpu(), value):
+                raise AssertionError(f"the zoo's UNet changed at {k}")
+        err = _http_json(port, "/guided_sample", {"prompt": PROMPT, "model_type": "nope"},
+                         expect=400)["error"]
+
+        # both requests wrote guided_0.png: the default request's image, saved again
+        Image.fromarray(default).save(os.path.join(out_dir, "default.png"))
+        with open(os.path.join(out_dir, "default.png"), "rb") as f:
+            payload = {"image_b64": base64.b64encode(f.read()).decode()}
+        out = _http_json(port, "/analyze_image", payload)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            out = _http_json(port, "/analyze_image", payload)
+        analyze_ms = (time.perf_counter() - t0) / 5 * 1e3
+        bank = load_analysis_bank()
+        for kind, names in (("styles", bank.style_names), ("media", bank.media_names)):
+            if len(out[kind]) != 3 or not all(n in names and np.isfinite(s) for s, n in out[kind]):
+                raise AssertionError(f"/analyze_image {kind}: {out[kind]}")
+    finally:
+        server.shutdown()
+    print(f"server: /seed {seed}; /model_types {model_types}; the two images differ (mean |diff| "
+          f"{np.abs(default.astype(float) - custom.astype(float)).mean():.2f} of 255) and the "
+          f"zoo's UNet is bit-identical afterwards; model_type 'nope': 400 ({err[:60]!r}); "
+          f"/analyze_image over HTTP {analyze_ms:.1f} ms a call: styles {out['styles']}, media "
+          f"{out['media']}", flush=True)
+    return by_request
 
 
 # kernel-name fragments -> class, first match wins (cuDNN, cuBLAS and the
@@ -1204,11 +1441,17 @@ def main(argv=None) -> int:
 
     phase("zoo", t_start)
     zoo = build_zoo(dev)
-
-    phase("main path", t_start)
     main_config = Config(width=512, height=512, num_cutout_batches=4,
                          chosen_clip_models=PERCEPTORS)
     main_models = zoo_subset(zoo, PERCEPTORS)
+
+    phase("checkpoints", t_start)
+    # release files of the main path's zoo, kept for the server phase (a
+    # TemporaryDirectory is removed at exit, also when a phase fails)
+    weights = tempfile.TemporaryDirectory(prefix="release_weights_")
+    check_checkpoints(dev, main_models, main_config, weights.name)
+
+    phase("main path", t_start)
     main_run = run_path("main path", main_models, args.steps, (512, 512, 3),
                         os.path.join(args.out, "main"), steps=args.steps, config=main_config)
     for rec in records:
@@ -1231,6 +1474,11 @@ def main(argv=None) -> int:
     phase("text front end", t_start)
     by_path.update(run_text_front_end(dev, zoo, main_models, main_config, args.steps,
                                       main_run["image"], os.path.join(args.out, "text")))
+
+    phase("server", t_start)
+    by_path.update(run_server(main_models, main_config, weights.name, args.steps,
+                              os.path.join(args.out, "server")))
+    weights.cleanup()
 
     phase("profile", t_start)
     profile_steps(dev, "main", main_models, main_config, 2, args.out)

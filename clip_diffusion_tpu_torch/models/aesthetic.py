@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from torch import nn
 
+from clip_diffusion_tpu_torch.models.convert import StateDict
+
 # CLIP embedding widths of the towers that have a head.
 CLIP_DIMS = {"ViT-B/32": 512, "ViT-B/16": 512, "ViT-L/14": 768}
 
@@ -36,6 +38,28 @@ class MLPAestheticPredictor(nn.Module):
 
     def forward(self, x):
         return self.layers(x)
+
+
+# Linear layers of the MLP head's Sequential (Dropouts between)
+_MLP_LINEARS = ("0", "2", "4", "6", "7")
+
+
+def convert_aesthetic(state_dict) -> StateDict:
+    """Either head's release state dict -> the port's keys: the simulacra
+    linear probes (`linear.*`, or a bare nn.Linear's `weight`/`bias`, which
+    become `linear.*`) and the improved-aesthetic-predictor MLP
+    (`layers.{0,2,4,6,7}.*`)."""
+    out = {}
+    for key, val in state_dict.items():
+        parts = key.split(".")
+        if key in ("weight", "bias"):
+            key = "linear." + key
+        elif not (len(parts) == 2 and parts[0] == "linear" and parts[1] in ("weight", "bias")
+                  or len(parts) == 3 and parts[0] == "layers" and parts[1] in _MLP_LINEARS
+                  and parts[2] in ("weight", "bias")):
+            raise KeyError(f"unmapped aesthetic key: {key}")
+        out[key] = val
+    return out
 
 
 def make_aesthetic_predictor(clip_model_name: str) -> nn.Module:

@@ -5,8 +5,10 @@ Counterpart of `clip_diffusion_tpu.models.esrgan`: `RRDBNet(3, 3, 64, 23,
 convs each, LeakyReLU 0.2, residual scaling 0.2), two nearest x2 stages,
 and for x2 a space-to-depth packing of the input.  The packing follows the
 JAX package, channel fastest: input channel (fy * 2 + fx) * C + c, not
-`F.pixel_unshuffle`'s c * 4 + fy * 2 + fx.  Keys follow basicsr's
-(`body.N.rdbM.convK.weight`).  Images are NHWC in [0, 1] at the boundary.
+`F.pixel_unshuffle`'s c * 4 + fy * 2 + fx, so `convert_rrdbnet` permutes
+the input channels of a basicsr x2 release's `conv_first`.  Keys follow
+basicsr's (`body.N.rdbM.convK.weight`).  Images are NHWC in [0, 1] at the
+boundary.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clip_diffusion_tpu_torch.models.convert import StateDict, check_key
+from clip_diffusion_tpu_torch.models.from_jax import esrgan_rule
 from clip_diffusion_tpu_torch.models.unet import Conv2d, _nearest_up2
 from clip_diffusion_tpu_torch.utils.dirs import list_images, make_dir
 from clip_diffusion_tpu_torch.utils.image_io import array_to_image, load_image
@@ -98,6 +102,22 @@ class RRDBNet(nn.Module):
         feat = _lrelu(self.conv_up2(_nearest_up2(feat)))
         out = self.conv_last(_lrelu(self.conv_hr(feat)))
         return out.permute(0, 2, 3, 1)
+
+
+def convert_rrdbnet(state_dict) -> StateDict:
+    """basicsr RRDBNet release state dict (`params_ema` already unwrapped)
+    -> the port's keys.  A x2 release (12 input channels) packs its input
+    with `F.pixel_unshuffle`, channel slowest (c * 4 + f); the port packs it
+    channel fastest (f * C + c, `_space_to_depth`), so `conv_first.weight`'s
+    input channels are permuted to match."""
+    out = {}
+    for key, val in state_dict.items():
+        check_key(key, esrgan_rule, "RRDBNet")
+        if key == "conv_first.weight" and val.shape[1] == 12:
+            o, _, kh, kw = val.shape
+            val = val.reshape(o, 3, 4, kh, kw).transpose(1, 2).reshape(o, 12, kh, kw)
+        out[key] = val
+    return out
 
 
 @torch.inference_mode()

@@ -19,7 +19,8 @@ Parameter names follow the HF `MarianMTModel` checkpoint without its
 {q,k,v,out}_proj.{weight,bias}`, `...self_attn_layer_norm`, `...fc1`,
 `...fc2`, `...final_layer_norm`, the decoder's `encoder_attn` and
 `encoder_attn_layer_norm` besides, and `final_logits_bias`, of shape
-(vocab,) here and (1, vocab) in HF.
+(vocab,) here and (1, vocab) in HF; `convert_marian` maps an HF state
+dict onto these names.
 
 `greedy_decode` keeps the JAX package's semantics: a fixed (B, max_len + 1)
 buffer, the whole decoder recomputed for every emitted token, the pad
@@ -35,6 +36,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import warnings
 from typing import Callable, Optional, Sequence
 
@@ -44,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clip_diffusion_tpu_torch.models.clip.model import LayerNormF32
+from clip_diffusion_tpu_torch.models.convert import StateDict
 from clip_diffusion_tpu_torch.models.unet import Linear
 from clip_diffusion_tpu_torch.text.spm import load_unigram
 
@@ -300,3 +303,30 @@ def marian_translator(model: MarianMT, max_len: int = 64) -> Callable[[str], str
         return marian_detokenize(greedy_decode(model, ids, max_len)[0], model.cfg)
 
     return translate
+
+
+_MARIAN_LAYER_KEY = re.compile(
+    r"(encoder|decoder)\.layers\.\d+\.("
+    r"(self_attn|encoder_attn)\.(q|k|v|out)_proj|self_attn_layer_norm|encoder_attn_layer_norm"
+    r"|final_layer_norm|fc1|fc2)\.(weight|bias)")
+# HF keys the port recomputes (the sinusoids) or ties to `shared.weight`
+_MARIAN_DROPPED = ("encoder.embed_positions.weight", "decoder.embed_positions.weight",
+                   "encoder.embed_tokens.weight", "decoder.embed_tokens.weight",
+                   "lm_head.weight")
+
+
+def convert_marian(state_dict) -> StateDict:
+    """HF `MarianMTModel` state dict -> `MarianMT` keys: `model.` stripped,
+    `final_logits_bias` (1, V) -> (V,); the position tables (regenerated as
+    sinusoids) and the tied embedding copies and `lm_head` dropped."""
+    out = {}
+    for key, val in state_dict.items():
+        name = key[len("model."):] if key.startswith("model.") else key
+        if name in _MARIAN_DROPPED:
+            continue
+        if name == "final_logits_bias":
+            val = val.reshape(-1)
+        elif name != "shared.weight" and not _MARIAN_LAYER_KEY.fullmatch(name):
+            raise KeyError(f"unmapped Marian key: {key}")
+        out[name] = val
+    return out

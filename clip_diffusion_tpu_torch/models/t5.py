@@ -20,6 +20,9 @@ Parameters are `shared.weight`, `block.N.{ln1,ln2}.weight`,
 weight` (buckets x heads), `block.N.{wi,wo}.weight`,
 `final_layer_norm.weight` and `projection.weight`.
 
+`convert_sentence_t5` maps the HF release (T5EncoderModel plus the
+sentence-transformers `2_Dense` projection) onto these names.
+
 Tokenizer: T5's SentencePiece model (`T5_SPM_PATH`, default
 data/t5-spiece.model) through the port's `text/spm.py` when the file
 exists, else the JAX package's deterministic hash stand-in.
@@ -31,6 +34,7 @@ import dataclasses
 import functools
 import math
 import os
+import re
 import warnings
 from typing import Sequence
 
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clip_diffusion_tpu_torch.models.convert import StateDict
 from clip_diffusion_tpu_torch.models.unet import Linear
 from clip_diffusion_tpu_torch.text.spm import load_unigram
 
@@ -204,4 +209,46 @@ def t5_tokenize(texts: Sequence[str] | str, max_len: int = 64) -> np.ndarray:
             ids = ids[: max_len - 1]
         ids = ids + [1]  # </s>
         out[i, : len(ids)] = ids
+    return out
+
+
+_T5_BLOCK_KEYS = (
+    (re.compile(r"encoder\.block\.(\d+)\.layer\.0\.SelfAttention\.([qkvo])\.weight"),
+     r"block.\1.attn.\2.weight"),
+    (re.compile(r"encoder\.block\.(\d+)\.layer\.0\.SelfAttention\.relative_attention_bias\.weight"),
+     r"block.\1.attn.relative_attention_bias.weight"),
+    (re.compile(r"encoder\.block\.(\d+)\.layer\.0\.layer_norm\.weight"), r"block.\1.ln1.weight"),
+    (re.compile(r"encoder\.block\.(\d+)\.layer\.1\.DenseReluDense\.(wi|wo)\.weight"),
+     r"block.\1.\2.weight"),
+    (re.compile(r"encoder\.block\.(\d+)\.layer\.1\.layer_norm\.weight"), r"block.\1.ln2.weight"),
+)
+
+
+def convert_sentence_t5(state_dict) -> StateDict:
+    """HF sentence-t5-base (T5EncoderModel keys, optionally under the
+    sentence-transformers prefix `0.auto_model.`, plus the `2_Dense`
+    projection's `linear.weight`) -> `SentenceT5` keys:
+    `encoder.block.N.layer.0.SelfAttention.q` -> `block.N.attn.q`, the two
+    sublayer norms -> `ln1`/`ln2`, `DenseReluDense.wi` -> `wi`,
+    `encoder.final_layer_norm` -> `final_layer_norm`, `*linear.weight` ->
+    `projection.weight`.  `encoder.embed_tokens.weight`, HF's tied copy of
+    `shared.weight`, is dropped."""
+    out = {}
+    for key, val in state_dict.items():
+        name = key[len("0.auto_model."):] if key.startswith("0.auto_model.") else key
+        if name == "encoder.embed_tokens.weight":
+            continue
+        if name == "shared.weight":
+            out[name] = val
+        elif name == "encoder.final_layer_norm.weight":
+            out["final_layer_norm.weight"] = val
+        elif name.endswith("linear.weight") or name == "projection.weight":
+            out["projection.weight"] = val
+        else:
+            for pattern, repl in _T5_BLOCK_KEYS:
+                if pattern.fullmatch(name):
+                    out[pattern.sub(repl, name)] = val
+                    break
+            else:
+                raise KeyError(f"unmapped sentence-t5 key: {key}")
     return out

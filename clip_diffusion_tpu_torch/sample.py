@@ -3,9 +3,10 @@
 `guided_diffusion_sample` and `latent_diffusion_sample` keep the JAX
 package's keyword arguments and return dicts, plus `device=` (default
 `cuda`; the CPU only when asked).  Chinese prompts are translated and
-`use_auto_modifiers` appends retrieved keywords (`text/prompt.py`).  Not
-yet ported, and raising `NotImplementedError`: `custom_model_params` (it
-waits for checkpoint loading).
+`use_auto_modifiers` appends retrieved keywords (`text/prompt.py`).
+`custom_model_params` is a UNet state dict in the port's layout on the
+request's device (what `runtime/registry.py` loads), applied to a shallow
+copy of the zoo.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from clip_diffusion_tpu_torch.zoo import (
     build_lpips,
     build_models,
     build_pipeline,
+    with_unet_state_dict,
 )
 
 OUTPUT_PATH = "output_images"
@@ -73,6 +75,8 @@ def guided_diffusion_sample(
     [urls], "seed": int}.
 
     `models`: a `zoo.ZooModels` built on `device` (built here when None).
+    `custom_model_params`: a finetuned UNet's state dict on `device`, used
+    in place of the zoo's UNet for this request only.
     With `use_auto_modifiers`, the prompt gains the top `num_modifiers`
     keywords of `modifier_bank` (default: the shipped bank, its sentence-T5
     on `device`), stored as the task state's `new_prompt`.
@@ -85,10 +89,6 @@ def guided_diffusion_sample(
     under <output_dir>/guided/steps/; the every-5-step progress upload keeps
     its contract either way."""
     device = resolve_device(device)
-    if custom_model_params is not None:
-        raise NotImplementedError(
-            "custom_model_params: checkpoint loading is a later slice of the port"
-        )
     config = config or Config()
     uploader = uploader or LocalUploader(output_dir)
     batch_folder = os.path.join(output_dir, "guided")
@@ -116,6 +116,9 @@ def guided_diffusion_sample(
         # a shallow copy: the caller's (possibly shared) zoo keeps no LPIPS
         # tower it did not ask for
         models = dataclasses.replace(models, lpips=build_lpips(device=device))
+    if custom_model_params is not None:
+        # a shallow copy too: later default requests keep the zoo's UNet
+        models = with_unet_state_dict(models, custom_model_params)
 
     if not seed:
         seed = random_seed()
@@ -245,7 +248,7 @@ def latent_diffusion_sample(
     batch_folder = os.path.join(output_dir, "latent")
     os.makedirs(batch_folder, exist_ok=True)
 
-    p = Prompt(prompt, False, 0)
+    p = Prompt(prompt, False, 0, device=device)
     if not seed:
         seed = random_seed()
 

@@ -128,7 +128,7 @@ class Prompt:
 
     @staticmethod
     def _preprocess(prompt, use_auto_modifiers, num_modifiers, bank, translator, device):
-        prompt = translate_zh_to_en(prompt, translator)
+        prompt = translate_zh_to_en(prompt, translator, device)
         if use_auto_modifiers and bank is None:
             bank = load_modifier_bank(device=device)
         if use_auto_modifiers and bank is not None:

@@ -5,9 +5,9 @@ tables.  Chinese is detected by the CJK range [\\u4e00-\\u9FFF].
 Traditional -> Simplified uses OpenCC "tw2sp" when it can be imported,
 else a curated Taiwan-phrase table (overlaid by `OPENCC_TW2SP_TSV`, default
 data/opencc/tw2sp_phrases.tsv, when that file exists) and a character
-table.  Translation uses an injected translator, else the default chain
-(`default_translator`), which is empty until MarianMT weights can be loaded
-(checkpoint loading, ROADMAP Queue 1 item 13): without one the prompt
+table.  Translation uses an injected translator, else the default one
+(`default_translator`): the port's MarianMT when the zoo's `marian_zh_en`
+slot and the tokenizer assets are provisioned.  Without one the prompt
 passes through untranslated, with a warning.
 """
 
@@ -144,30 +144,45 @@ def tw_to_simplified(text: str) -> str:
     return OpenCC("tw2sp.json").convert(text)
 
 
-def default_translator() -> Optional[Callable[[str], str]]:
-    """The default zh -> en translator: the port's MarianMT with converted
-    weights from `MARIAN_PARAMS_PATH` (default data/marian/params).  None
-    when that directory is absent.  Loading those weights is not ported
-    yet, so a present directory raises rather than translating with random
-    weights."""
-    params_path = os.environ.get("MARIAN_PARAMS_PATH", "data/marian/params")
-    if not os.path.isdir(params_path):
+MARIAN_SLOT = "marian_zh_en"
+
+
+def default_translator(device=None) -> Optional[Callable[[str], str]]:
+    """The default zh -> en translator: the port's MarianMT on `device`
+    (default `cuda`), loaded through the zoo's gate from slot
+    `marian_zh_en`, when that file and the tokenizer assets (`MARIAN_SPM_PATH`,
+    `MARIAN_VOCAB_PATH`) are present; built once per (file, device).  None
+    when either is absent.  The JAX package's orbax tree without the port's
+    file raises (`zoo.provisioned_checkpoint`)."""
+    from clip_diffusion_tpu_torch.models.marian import _assets
+    from clip_diffusion_tpu_torch.utils.device import resolve_device
+    from clip_diffusion_tpu_torch.zoo import provisioned_checkpoint
+
+    path = provisioned_checkpoint(MARIAN_SLOT)
+    if path is None or _assets()[0] is None:
         return None
-    raise NotImplementedError(
-        f"MarianMT weights at {params_path}: checkpoint loading is not ported yet "
-        "(ROADMAP Queue 1 item 13)"
-    )
+    return _marian_translator(path, str(resolve_device(device)))
+
+
+@functools.lru_cache(maxsize=4)
+def _marian_translator(path: str, device: str) -> Callable[[str], str]:
+    from clip_diffusion_tpu_torch.models.marian import marian_translator
+    from clip_diffusion_tpu_torch.zoo import init_marian
+
+    return marian_translator(init_marian(device=device,
+                                         checkpoint_root=os.path.dirname(path)))
 
 
 def translate_zh_to_en(
-    text: str, translator: Optional[Callable[[str], str]] = None
+    text: str, translator: Optional[Callable[[str], str]] = None, device=None
 ) -> str:
-    """zh -> en when the text contains Chinese, after tw2sp.  Identity (with
-    a warning) when no translator is available."""
+    """zh -> en when the text contains Chinese, after tw2sp, through
+    `translator`, else the default one on `device`.  Identity (with a
+    warning) when no translator is available."""
     if not contains_zh(text):
         return text
     text = tw_to_simplified(text)
-    translator = translator or default_translator()
+    translator = translator or default_translator(device)
     if translator is None:
         warnings.warn(
             "MarianMT zh->en weights unavailable; passing the prompt through "

@@ -2,7 +2,7 @@
 trajectory GIF, and the latent pipeline's grid with its drawn indices.
 
 Counterpart of the parts of `clip_diffusion_tpu.utils.image_io` that
-`sample.py` uses.  Arrays are HWC float in [0, 1] display space, or
+`sample.py` and the server use.  Arrays are HWC float in [0, 1] display space, or
 [-1, 1] model space.
 """
 
@@ -34,7 +34,7 @@ def load_image(path_or_bytes, size=None) -> np.ndarray:
     img = Image.open(path_or_bytes).convert("RGB")
     if size is not None:
         img = img.resize(size, Image.LANCZOS)
-    return np.asarray(img, dtype=np.float32) / 255.0
+    return image_to_array(img)
 
 
 def load_mask(path_or_bytes, size=None) -> np.ndarray:
@@ -53,6 +53,11 @@ def load_mask(path_or_bytes, size=None) -> np.ndarray:
     if size is not None:
         mask = mask.resize(size, Image.LANCZOS)
     return np.asarray(mask, dtype=np.float32)[..., None]
+
+
+def image_to_array(image: Image.Image) -> np.ndarray:
+    """PIL image -> (H, W, 3) float32 RGB in [0, 1]."""
+    return np.asarray(image.convert("RGB"), dtype=np.float32) / 255.0
 
 
 def array_to_image(arr) -> Image.Image:

@@ -7,22 +7,35 @@ embed the prompt per perceptor.  For the latent request: the LDM UNet
 (seed, `param_dtype`), the VQ-f8 first stage (seed + 1, float32) and the
 BERT encoder (seed + 2, `param_dtype`), and Real-ESRGAN (seed 2000,
 float32).  For the text front end: the sentence-T5 encoder (seed, float32)
-and MarianMT (`init_marian`).  Real checkpoints are not in the repository
-yet, so every model is randomly initialized host-side with numpy by the JAX
-zoo's rules (`_host_init`): `scale` and any leaf whose name holds `var` ->
-ones, `bias` and `mean` -> zeros (these draw no random numbers), everything
-else N(0, 1/fan_in) with fan_in the product of all but the last JAX
-dimension, drawn from one `np.random.default_rng(seed)` in the flax tree's
-leaf order and carried into the port's layout by `models/from_jax.py`.  The
-same seed therefore gives the same weights as the JAX zoo.
+and MarianMT (`init_marian`).
+
+Every builder goes through one gate, `load_or_init`.  The weights are the
+public torch release files themselves, one per slot under the JAX
+package's slot names: `<root>/<slot>.pt`, the root `$CLIP_DIFFUSION_TORCH`
+(default models/torch).  A present file is read, converted to the port's
+keys, validated against the module and loaded; an absent one means a
+random init; a present file that cannot be used raises, and so does an
+absent one whose JAX orbax slot is present (the port cannot read orbax),
+unless `CLIP_DIFFUSION_TPU_LENIENT_LOAD` is set, which turns both into a
+warning and a random init.  `weights_provenance` reports which trees were
+loaded.
+
+The random init is host-side numpy by the JAX zoo's rules (`_host_init`):
+`scale` and any leaf whose name holds `var` -> ones, `bias` and `mean` ->
+zeros (these draw no random numbers), everything else N(0, 1/fan_in) with
+fan_in the product of all but the last JAX dimension, drawn from one
+`np.random.default_rng(seed)` in the flax tree's leaf order and carried
+into the port's layout by `models/from_jax.py`.  The same seed therefore
+gives the same weights as the JAX zoo.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 import zlib
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,19 +45,31 @@ from clip_diffusion_tpu_torch.config import Config
 from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig
 from clip_diffusion_tpu_torch.diffusion.schedule import make_schedule
 from clip_diffusion_tpu_torch.models import from_jax
-from clip_diffusion_tpu_torch.models.aesthetic import CLIP_DIMS, make_aesthetic_predictor
+from clip_diffusion_tpu_torch.models.aesthetic import (
+    CLIP_DIMS,
+    convert_aesthetic,
+    make_aesthetic_predictor,
+)
 from clip_diffusion_tpu_torch.models.clip.model import CLIP_PRESETS, CLIPModel
 from clip_diffusion_tpu_torch.models.clip.tokenizer import default_bpe_path, get_tokenizer, tokenize
-from clip_diffusion_tpu_torch.models.esrgan import RRDBNet
+from clip_diffusion_tpu_torch.models.convert import convert_clip, convert_unet
+from clip_diffusion_tpu_torch.models.esrgan import RRDBNet, convert_rrdbnet
 from clip_diffusion_tpu_torch.models.ldm.autoencoder import VQConfig, VQModel
 from clip_diffusion_tpu_torch.models.ldm.bert import BERTConfig, BERTEmbedder, bert_tokenize
+from clip_diffusion_tpu_torch.models.ldm.convert import (
+    convert_bert,
+    convert_ldm_unet,
+    convert_vq,
+    split_ldm_state_dict,
+)
 from clip_diffusion_tpu_torch.models.ldm.unet import LDMUNet, LDMUNetConfig
-from clip_diffusion_tpu_torch.models.lpips import LPIPS
-from clip_diffusion_tpu_torch.models.marian import MarianConfig, MarianMT
-from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config
+from clip_diffusion_tpu_torch.models.lpips import LPIPS, convert_lpips
+from clip_diffusion_tpu_torch.models.marian import MarianConfig, MarianMT, convert_marian
+from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, convert_sentence_t5
 from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
 from clip_diffusion_tpu_torch.pipeline.guided import GuidedPipeline, Perceptor
 from clip_diffusion_tpu_torch.pipeline.latent import LatentPipeline
+from clip_diffusion_tpu_torch.utils.checkpoint import load_validated
 from clip_diffusion_tpu_torch.utils.device import resolve_device
 
 
@@ -91,23 +116,138 @@ def _materialize(build, rule, seed: int, dtype, device) -> nn.Module:
     return module.eval()
 
 
+# the port's weights root: public torch release files, <root>/<slot>.pt
+TORCH_ROOT_ENV = "CLIP_DIFFUSION_TORCH"
+DEFAULT_TORCH_ROOT = os.path.join("models", "torch")
+# the JAX package's orbax root, which the port cannot read; and the JAX
+# package's own paths of the two text models' orbax trees
+FLAX_ROOT_ENV = "CLIP_DIFFUSION_FLAX"
+DEFAULT_FLAX_ROOT = os.path.join("models", "flax")
+_JAX_TEXT_SLOTS = {"sentence_t5": ("T5_PARAMS_PATH", os.path.join("data", "t5", "params")),
+                   "marian_zh_en": ("MARIAN_PARAMS_PATH", os.path.join("data", "marian", "params"))}
+LENIENT_ENV = "CLIP_DIFFUSION_TPU_LENIENT_LOAD"
+
+
+def torch_root(root: Optional[str] = None) -> str:
+    """The port's weights root: `root`, else `$CLIP_DIFFUSION_TORCH`, else
+    models/torch."""
+    return root or os.environ.get(TORCH_ROOT_ENV, DEFAULT_TORCH_ROOT)
+
+
+def _slot_file(name: str, root: Optional[str]) -> str:
+    return os.path.abspath(os.path.join(torch_root(root), f"{name}.pt"))
+
+
+def checkpoint_path(name: str, root: Optional[str] = None) -> Optional[str]:
+    """Path of the release file `<root>/<name>.pt` if present, else None."""
+    path = _slot_file(name, root)
+    return path if os.path.isfile(path) else None
+
+
+def jax_checkpoint_dir(name: str) -> Optional[str]:
+    """The JAX package's orbax directory for slot `name` if present
+    (`$CLIP_DIFFUSION_FLAX/<name>`, default models/flax/<name>; for the two
+    text models also `T5_PARAMS_PATH` / `MARIAN_PARAMS_PATH`), else None."""
+    candidates = [os.path.join(os.environ.get(FLAX_ROOT_ENV, DEFAULT_FLAX_ROOT), name)]
+    if name in _JAX_TEXT_SLOTS:
+        env, default = _JAX_TEXT_SLOTS[name]
+        candidates.append(os.environ.get(env, default))
+    return next((os.path.abspath(p) for p in candidates if os.path.isdir(p)), None)
+
+
+def _refuse(message: str, error: Optional[Exception] = None) -> None:
+    """Raise RuntimeError, or only warn in lenient mode (the caller then
+    initializes)."""
+    if not os.environ.get(LENIENT_ENV):
+        raise RuntimeError(f"{message}; refusing to serve random init: remove it to run from "
+                           f"init, or set {LENIENT_ENV}=1") from error
+    warnings.warn(f"{message}; falling back to random init (lenient mode)")
+
+
+def provisioned_checkpoint(name: str, root: Optional[str] = None,
+                           file_slot: Optional[str] = None) -> Optional[str]:
+    """The release file of slot `name` (read from `file_slot`'s file when
+    several slots share one), or None when the slot is unprovisioned.  An
+    absent file whose JAX orbax slot is present raises (`_refuse`)."""
+    path = _slot_file(file_slot or name, root)
+    if os.path.isfile(path):
+        return path
+    jax_dir = jax_checkpoint_dir(name)
+    if jax_dir is not None:
+        _refuse(f"the JAX package's checkpoint {jax_dir} is present but the port's file {path} "
+                "is absent (the port reads torch release files, not orbax trees)")
+    return None
+
+
+# which trees this process served: loaded from release files or random
+# init.  Scores are reference-comparable only when every tree loaded and the
+# real BPE table is present.
+_PROVENANCE = {"loaded": set(), "random_init": set()}
+
+
+def load_or_init(name: str, build: Callable[[], nn.Module], rule, convert: Callable,
+                 seed: int = 0, dtype=torch.bfloat16, device=None, root: Optional[str] = None,
+                 file_slot: Optional[str] = None, allow_torchscript: bool = False) -> nn.Module:
+    """The single gate every zoo builder goes through (the JAX zoo's
+    `load_or_init`): the module `build()` returns, on `device` in `dtype`,
+    loaded from slot `name`'s release file through `convert` when present
+    (`utils/checkpoint.load_validated`: no weight is initialized and then
+    overwritten, the module is built on `meta` and takes the loaded
+    tensors), else randomly initialized by `rule` from `seed`.  A present
+    file that fails to read or validate raises RuntimeError naming it, as
+    does a JAX-only slot (`provisioned_checkpoint`); lenient mode warns and
+    initializes instead."""
+    device = resolve_device(device)
+    path = provisioned_checkpoint(name, root, file_slot)
+    if path is not None:
+        with torch.device("meta"):
+            module = build()
+        try:
+            sd = load_validated(path, module, convert, dtype, name, device, allow_torchscript)
+        except Exception as e:  # noqa: BLE001 - any read or format problem
+            _refuse(f"checkpoint {path} is present but unusable ({e!r})", e)
+        else:
+            module.load_state_dict(sd, assign=True)
+            _PROVENANCE["loaded"].add(name)
+            return module.requires_grad_(False).eval()
+    _PROVENANCE["random_init"].add(name)
+    return _materialize(build, rule, seed, dtype, device)
+
+
 def clip_seed(model_name: str, seed: int = 0) -> int:
     """Per-tower seed depending only on the model name (JAX zoo rule)."""
     return seed + (zlib.crc32(model_name.encode()) % 100000)
 
 
+def clip_checkpoint_name(model_name: str) -> str:
+    return f"clip_{model_name.replace('/', '_')}"
+
+
 def build_clip(model_name: str, param_dtype=torch.bfloat16, seed: int = 0,
-               device=None) -> CLIPModel:
+               device=None, checkpoint_root: Optional[str] = None) -> CLIPModel:
+    """One CLIP tower: OpenAI's release (a state dict or the TorchScript
+    archive) from slot `clip_<name with / as _>`, else a random init whose
+    seed depends only on the model name."""
     ccfg = dataclasses.replace(CLIP_PRESETS[model_name], dtype=param_dtype)
-    return _materialize(lambda: CLIPModel(ccfg), from_jax.clip_rule,
-                        clip_seed(model_name, seed), param_dtype,
-                        resolve_device(device))
+    return load_or_init(clip_checkpoint_name(model_name), lambda: CLIPModel(ccfg),
+                        from_jax.clip_rule, convert_clip, clip_seed(model_name, seed),
+                        param_dtype, device, checkpoint_root, allow_torchscript=True)
 
 
-def build_lpips(seed: int = 1000, device=None) -> LPIPS:
-    """LPIPS (VGG16) in float32, the JAX zoo's seed."""
-    return _materialize(LPIPS, from_jax.lpips_rule, seed, torch.float32,
-                        resolve_device(device))
+def build_lpips(seed: int = 1000, device=None, checkpoint_root: Optional[str] = None) -> LPIPS:
+    """LPIPS (VGG16) in float32 from slot `lpips_vgg`, else the JAX zoo's
+    seed."""
+    return load_or_init("lpips_vgg", LPIPS, from_jax.lpips_rule, convert_lpips, seed,
+                        torch.float32, device, checkpoint_root)
+
+
+def build_aesthetic(model_name: str, seed: int, device=None,
+                    checkpoint_root: Optional[str] = None) -> nn.Module:
+    """The aesthetic head paired with CLIP tower `model_name`, float32, from
+    slot `aesthetic_<name with / as _>`."""
+    return load_or_init(f"aesthetic_{model_name.replace('/', '_')}",
+                        lambda: make_aesthetic_predictor(model_name), from_jax.aesthetic_rule,
+                        convert_aesthetic, seed, torch.float32, device, checkpoint_root)
 
 
 def build_models(
@@ -117,30 +257,50 @@ def build_models(
     seed: int = 0,
     with_aesthetic: bool = False,
     with_lpips: bool = False,
+    checkpoint_root: Optional[str] = None,
     unet_config: Optional[UNetConfig] = None,
     device=None,
 ) -> ZooModels:
-    """Build the UNet, the chosen CLIP towers and, when asked, their
-    aesthetic heads (float32, seed + 100 + the tower's position, for the
-    towers in `chosen_predictors` that have one) and LPIPS (float32, seed +
-    1000) on `device` (default `cuda`), randomly initialized as the JAX zoo
-    does when no checkpoint is provisioned."""
+    """Build the UNet (slot `guided_unet_{image_size}`), the chosen CLIP
+    towers and, when asked, their aesthetic heads (float32, seed + 100 + the
+    tower's position, for the towers in `chosen_predictors` that have one)
+    and LPIPS (float32, seed + 1000) on `device` (default `cuda`), each
+    through the gate (`load_or_init`).  `unet_config` overrides the ADM
+    architecture and keeps the slot."""
     device = resolve_device(device)
     unknown = [n for n in config.chosen_clip_models if n not in CLIP_PRESETS]
     if unknown:  # fail before any large build
         raise KeyError(f"unknown CLIP model(s) {unknown}")
     ucfg = unet_config or UNetConfig.for_image_size(image_size)
-    unet = _materialize(lambda: UNetModel(ucfg), from_jax.unet_rule, seed,
-                        param_dtype, device)
+    unet = load_or_init(f"guided_unet_{image_size}", lambda: UNetModel(ucfg),
+                        from_jax.unet_rule, convert_unet, seed, param_dtype, device,
+                        checkpoint_root)
     clips, aesthetic = {}, {}
     for i, name in enumerate(config.chosen_clip_models):
-        clips[name] = build_clip(name, param_dtype, seed, device)
+        clips[name] = build_clip(name, param_dtype, seed, device, checkpoint_root)
         if with_aesthetic and name in config.chosen_predictors and name in CLIP_DIMS:
-            aesthetic[name] = _materialize(
-                lambda n=name: make_aesthetic_predictor(n), from_jax.aesthetic_rule,
-                seed + 100 + i, torch.float32, device)
-    lpips = build_lpips(seed + 1000, device) if with_lpips else None
+            aesthetic[name] = build_aesthetic(name, seed + 100 + i, device, checkpoint_root)
+    lpips = build_lpips(seed + 1000, device, checkpoint_root) if with_lpips else None
     return ZooModels(unet, clips, aesthetic, lpips)
+
+
+def with_unet_state_dict(models: ZooModels, state_dict: Dict[str, torch.Tensor]) -> ZooModels:
+    """A shallow copy of `models` whose UNet takes `state_dict` (the port's
+    layout, on the zoo's device in the zoo's dtype, e.g. from
+    `runtime/registry.py`): a second `UNetModel` of the zoo's config, built
+    on `meta`, is assigned the dict's tensors, so no weight is copied and
+    the shared zoo stays as it is."""
+    ref = models.unet.state_dict()
+    unlike = sorted(f"{k} ({v.dtype} on {v.device}, the zoo's {ref[k].dtype} on {ref[k].device})"
+                    for k, v in state_dict.items()
+                    if k in ref and (v.device != ref[k].device or v.dtype != ref[k].dtype))
+    if unlike:
+        raise ValueError(f"custom UNet parameters unlike the zoo's in device or dtype: "
+                         f"{unlike[:3]}")
+    with torch.device("meta"):
+        unet = UNetModel(models.unet.config)
+    unet.load_state_dict(state_dict, strict=True, assign=True)
+    return dataclasses.replace(models, unet=unet.requires_grad_(False).eval())
 
 
 def build_pipeline(
@@ -216,21 +376,34 @@ class LatentModels:
 
 
 def build_latent_models(param_dtype=torch.bfloat16, seed: int = 0, tiny: bool = False,
-                        device=None) -> LatentModels:
-    """The LDM txt2img-f8-large stack on `device` (default `cuda`), randomly
-    initialized as the JAX zoo does: the UNet at `seed` and the BERT at
-    seed + 2 in `param_dtype`, the VQ at seed + 1 in float32.  `tiny`
-    builds the test configs, the BERT as wide as the tiny UNet's context."""
+                        device=None, checkpoint_root: Optional[str] = None) -> LatentModels:
+    """The LDM txt2img-f8-large stack on `device` (default `cuda`): the UNet
+    (slot `ldm_unet`, else init at `seed`) and the BERT (`ldm_bert`, seed +
+    2) in `param_dtype`, the VQ (`ldm_vq`, seed + 1) in float32.  The three
+    slots read the one LatentDiffusion release file, `ldm.pt`, split by
+    prefix (the UNet's LitEma shadows preferred).  `tiny` builds the test
+    configs, the BERT as wide as the tiny UNet's context, and skips the
+    gate unless `checkpoint_root` is given."""
     device = resolve_device(device)
     ucfg = LDMUNetConfig.tiny() if tiny else LDMUNetConfig()
     vcfg = VQConfig.tiny() if tiny else VQConfig()
     bcfg = BERTConfig.tiny() if tiny else BERTConfig()
     if tiny:
         bcfg = dataclasses.replace(bcfg, n_embed=ucfg.context_dim)
-    unet = _materialize(lambda: LDMUNet(ucfg), from_jax.ldm_unet_rule, seed, param_dtype, device)
-    vq = _materialize(lambda: VQModel(vcfg), from_jax.vq_rule, seed + 1, torch.float32, device)
-    bert = _materialize(lambda: BERTEmbedder(bcfg), from_jax.bert_rule, seed + 2, param_dtype,
-                        device)
+
+    def gate(name, build, rule, part, convert, dtype, s):
+        if tiny and checkpoint_root is None:
+            return _materialize(build, rule, s, dtype, device)
+        return load_or_init(name, build, rule,
+                            lambda sd: convert(split_ldm_state_dict(sd)[part]), s, dtype,
+                            device, checkpoint_root, file_slot="ldm")
+
+    unet = gate("ldm_unet", lambda: LDMUNet(ucfg), from_jax.ldm_unet_rule, 0, convert_ldm_unet,
+                param_dtype, seed)
+    vq = gate("ldm_vq", lambda: VQModel(vcfg), from_jax.vq_rule, 1, convert_vq, torch.float32,
+              seed + 1)
+    bert = gate("ldm_bert", lambda: BERTEmbedder(bcfg), from_jax.bert_rule, 2, convert_bert,
+                param_dtype, seed + 2)
     return LatentModels(unet, vq, bert)
 
 
@@ -260,56 +433,61 @@ def build_latent_pipeline(models: LatentModels) -> Tuple[LatentPipeline, BertTex
 
 
 def build_esrgan(scale: int = 4, seed: int = 2000, tiny: bool = False,
-                 device=None) -> RRDBNet:
+                 device=None, checkpoint_root: Optional[str] = None) -> RRDBNet:
     """The Real-ESRGAN upsampler, RRDBNet(3, 3, 64, 23, 32, scale) in
-    float32, on `device` (default `cuda`); `tiny`: 16 features, 2 blocks,
-    growth 8."""
+    float32, on `device` (default `cuda`), from slot `esrgan_x{scale}`;
+    `tiny`: 16 features, 2 blocks, growth 8, and no gate unless
+    `checkpoint_root` is given."""
     if tiny:
         build = lambda: RRDBNet(scale=scale, num_feat=16, num_block=2, num_grow_ch=8)
+        if checkpoint_root is None:
+            return _materialize(build, from_jax.esrgan_rule, seed, torch.float32,
+                                resolve_device(device))
     else:
         build = lambda: RRDBNet(scale=scale)
-    return _materialize(build, from_jax.esrgan_rule, seed, torch.float32, resolve_device(device))
+    return load_or_init(f"esrgan_x{scale}", build, from_jax.esrgan_rule, convert_rrdbnet, seed,
+                        torch.float32, device, checkpoint_root)
 
 
-def load_or_init_sentence_t5(param_dtype=torch.float32, seed: int = 0,
-                             device=None) -> SentenceT5:
-    """The full-width sentence-T5 on `device` (default `cuda`), randomly
-    initialized as the JAX package's `load_or_init_sentence_t5` does
-    without converted weights: the one tower the query encoder and the
-    committed modifier bank (data/banks/modifiers_t5.npy) share.  Converted
-    weights at `T5_PARAMS_PATH` (default data/t5/params) cannot be loaded
-    yet: a present directory raises rather than serving random weights."""
-    path = os.environ.get("T5_PARAMS_PATH", "data/t5/params")
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"sentence-T5 weights at {path}: checkpoint loading is not ported yet "
-            "(ROADMAP Queue 1 item 13)"
-        )
-    return _materialize(lambda: SentenceT5(T5Config()), from_jax.t5_rule, seed, param_dtype,
-                        resolve_device(device))
+def load_or_init_sentence_t5(param_dtype=torch.float32, seed: int = 0, device=None,
+                             checkpoint_root: Optional[str] = None) -> SentenceT5:
+    """The full-width sentence-T5 on `device` (default `cuda`), from slot
+    `sentence_t5` (HF sentence-t5-base), else a random init: the one tower
+    the query encoder and the committed modifier bank
+    (data/banks/modifiers_t5.npy) share."""
+    return load_or_init("sentence_t5", lambda: SentenceT5(T5Config()), from_jax.t5_rule,
+                        convert_sentence_t5, seed, param_dtype, device, checkpoint_root)
 
 
-def init_marian(cfg: Optional[MarianConfig] = None, seed: int = 0, device=None) -> MarianMT:
+def init_marian(cfg: Optional[MarianConfig] = None, seed: int = 0, device=None,
+                checkpoint_root: Optional[str] = None) -> MarianMT:
     """MarianMT (default: the opus-mt-zh-en geometry) on `device` (default
-    `cuda`), randomly initialized by the JAX zoo's rule with float32
-    parameters (`cfg.dtype` sets the compute precision); stands in for the
-    converted weights until checkpoint loading is ported."""
+    `cuda`) with float32 parameters (`cfg.dtype` sets the compute
+    precision), from slot `marian_zh_en` (HF opus-mt-zh-en), else a random
+    init by the JAX zoo's rule."""
     cfg = cfg or MarianConfig.opus_zh_en()
-    return _materialize(lambda: MarianMT(cfg), from_jax.marian_rule, seed, torch.float32,
-                        resolve_device(device))
+    return load_or_init("marian_zh_en", lambda: MarianMT(cfg), from_jax.marian_rule,
+                        convert_marian, seed, torch.float32, device, checkpoint_root)
 
 
 def weights_provenance() -> dict:
-    """Whether scores from this process compare with the reference's: every
-    tree the port serves is a random-init stand-in (checkpoint loading is
-    not ported yet), and the CLIP tokenizer is the real BPE table only when
-    that file is present."""
+    """The trees this process served through the gate, loaded or random
+    init, and the tokenizer in use, rolled into a verdict: scores compare
+    with the reference's only when trees were loaded, none was a random-init
+    stand-in, and the CLIP tokenizer is the real BPE table.  (The JAX
+    package's rule, except that a process that served no tree through the
+    gate, e.g. one whose modules were built directly, claims nothing.)"""
     if get_tokenizer.cache_info().currsize:
         real_bpe = type(get_tokenizer()).__name__ == "SimpleTokenizer"
     else:  # nothing tokenized yet: what would be used
         real_bpe = default_bpe_path() is not None
+    loaded = sorted(_PROVENANCE["loaded"])
+    random_init = sorted(_PROVENANCE["random_init"])
+    converted = bool(loaded) and not random_init
     return {
-        "weights": "random-init stand-in (not reference-comparable)",
+        "weights": "converted" if converted else "random-init stand-in (not reference-comparable)",
         "tokenizer": "real-bpe" if real_bpe else "hash-standin",
-        "reference_comparable": False,
+        "random_init": random_init,
+        "loaded": loaded,
+        "reference_comparable": converted and real_bpe,
     }

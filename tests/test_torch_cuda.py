@@ -251,3 +251,26 @@ def test_embedding_index_on_card_matches_cpu(cuda):
     s_gpu, i_gpu = EmbeddingIndex(bank, cuda).search(queries, 5)
     np.testing.assert_array_equal(i_gpu, i_cpu)
     np.testing.assert_allclose(s_gpu, s_cpu, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_release_unet_file_loads_onto_the_card_in_bf16(cuda, tmp_path):
+    """A tiny release-layout UNet file (attention weights as Conv1d) through
+    the zoo's gate with device="cuda": every parameter lands on the card in
+    bf16, equal to the same file loaded on the CPU."""
+    from clip_diffusion_tpu_torch.config import Config
+    from clip_diffusion_tpu_torch.models.convert import release_unet_state_dict
+    from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
+
+    unet = UNetModel(UNetConfig.tiny(64))
+    sd = zoo.host_init_state_dict(unet, from_jax.unet_rule, 3, torch.float32)
+    torch.save(release_unet_state_dict(sd), tmp_path / "guided_unet_512.pt")
+    loaded = {dev: zoo.build_models(Config(chosen_clip_models=()), unet_config=UNetConfig.tiny(64),
+                                    device=dev, checkpoint_root=str(tmp_path)).unet
+              for dev in ("cpu", cuda)}
+    for (name, got), (_, ref) in zip(loaded[cuda].state_dict().items(),
+                                     loaded["cpu"].state_dict().items()):
+        assert got.device.type == "cuda" and got.dtype == torch.bfloat16, name
+        assert torch.equal(got.cpu(), ref), name
+        assert torch.equal(ref, sd[name].to(torch.bfloat16)), name
+    assert "guided_unet_512" in zoo.weights_provenance()["loaded"]

@@ -177,14 +177,16 @@ def test_guided_diffusion_sample_cpu(pipelines, tmp_path):
         assert gif.n_frames == 6
 
 
-def test_entry_points_need_a_gpu_unless_asked():
+def test_entry_points_need_a_gpu_unless_asked(pipelines):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tsample.guided_diffusion_sample(steps=2)
-    # checkpoint loading is a later slice: a finetuned UNet still raises
-    with pytest.raises(NotImplementedError, match="custom_model_params"):
-        tsample.guided_diffusion_sample(custom_model_params={}, device="cpu")
+    # a finetuned UNet must be a whole state dict of the zoo's UNet
+    # (tests/test_torch_checkpoint.py runs a real one)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        tsample.guided_diffusion_sample(models=pipelines[2], custom_model_params={}, steps=2,
+                                        device="cpu")
 
 
 def test_batched_prompts_give_per_image_embeddings(pipelines):

@@ -136,14 +136,16 @@ def test_tw2sp_tsv_overlay_matches_jax(tmp_path, monkeypatch):
 def test_translate_zh_to_en(tmp_path, monkeypatch):
     """English passes through; Chinese goes through tw2sp, then the given
     translator, else (no Marian weights) through unchanged with a warning;
-    a Marian weights directory raises until checkpoint loading lands."""
+    the JAX package's Marian orbax directory without the port's release
+    file raises rather than translating with random weights."""
     assert tzh.translate_zh_to_en("a cat", lambda t: "X") == "a cat"
     assert tzh.translate_zh_to_en("一隻貓", lambda t: f"[{t}]") == "[一只猫]"
     monkeypatch.setenv("MARIAN_PARAMS_PATH", str(tmp_path / "absent"))
     with pytest.warns(UserWarning, match="untranslated"):
         assert tzh.translate_zh_to_en("一隻貓") == jzh.tw_to_simplified("一隻貓")
     monkeypatch.setenv("MARIAN_PARAMS_PATH", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    monkeypatch.setenv("CLIP_DIFFUSION_TORCH", str(tmp_path / "no_port_files"))
+    with pytest.raises(RuntimeError, match="marian_zh_en.pt is absent"):
         tzh.translate_zh_to_en("一隻貓")
 
 
@@ -316,15 +318,17 @@ def cpu_bank():
 
 def test_absent_assets_and_unloadable_weights(tmp_path, monkeypatch):
     """Without bank assets the default bank is None (with a warning) and
-    auto-modifiers append nothing; a sentence-T5 weights directory raises
-    until checkpoint loading lands, rather than serving random weights."""
+    auto-modifiers append nothing; the JAX package's sentence-T5 orbax
+    directory without the port's release file raises, rather than serving
+    random weights."""
     with pytest.warns(UserWarning, match="auto-modifiers disabled"):
         assert tprompt.load_modifier_bank(str(tmp_path), device="cpu") is None
     monkeypatch.setattr(tprompt, "DATA_ROOT", str(tmp_path / "empty"))
     with pytest.warns(UserWarning, match="auto-modifiers disabled"):
         assert tprompt.Prompt("a cat:2", True, 3, device="cpu").text == "a cat"
     monkeypatch.setenv("T5_PARAMS_PATH", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    monkeypatch.setenv("CLIP_DIFFUSION_TORCH", str(tmp_path / "no_port_files"))
+    with pytest.raises(RuntimeError, match="sentence_t5.pt is absent"):
         tzoo.load_or_init_sentence_t5(device="cpu")
 
 
