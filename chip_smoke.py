@@ -16,7 +16,9 @@ Phases, each announced on its own line; any failure exits non-zero:
 4. reference: two tiny pipelines on the card against the same pipelines on
    the CPU, same weights and same draws: the DDIM one with a ViT tower, and
    one with a ResNet tower, an aesthetic head, LPIPS, an init image and
-   PLMS;
+   PLMS; whole trajectories with the exact threshold, and with mode B's
+   (the kernel) at batch 2 one step at a time from the card's state, each
+   within 1e-3;
 5. zoo: the full-width models, built once: the 512 ADM UNet (bfloat16,
    random init), the ViT-B/32, ViT-B/16, ViT-L/14 and RN101 perceptors at
    preset widths, the aesthetic heads of the three ViTs and LPIPS.  Each
@@ -78,12 +80,33 @@ Phases, each announced on its own line; any failure exits non-zero:
 17. latent profile: two CFG steps of the request timed, then run under
     torch.profiler (device ms per step, idle share, device time by kernel
     class, achieved FLOP/s), the VQ decode's device time, and one ESRGAN x4
-    call per image, whole and tiled.
+    call per image, whole and tiled;
+18. batch serving, in a process group of one rank on NCCL:
+    `serve_guided_batch` on the main path's towers and config, 2 prompts x
+    2 seeds, 5 DDIM steps (4 finite images, the two seeds of a prompt
+    different, peak memory), and `serve_latent_batch` on the default latent
+    stack, 3 prompts x 3 seeds, CFG DDIM, 10 steps, decoded (9 finite
+    images in [0, 1]); each call's wall time, then its device ms per step
+    from a second call under torch.profiler;
+19. ensemble: (a) `parallel.ensemble.build_ensemble_guided_step` with
+    ViT-L/14 alone, on the NCCL group of one rank, against `guided_step`
+    with unshared cutouts from the same x_t at each of 5 steps at 512x512,
+    within 1e-5 of the image scale; (b) two processes sharing the card
+    over gloo with CUDA tensors, each rebuilding the tiny float32 pipeline
+    with two ViT towers: the ensemble (one tower per rank, 3 steps) against
+    the single-process steps with unshared cutouts, and `serve_guided_batch`
+    (2 prompts x 2 seeds, 3 steps) at world size 2 against world size 1,
+    each within 1e-5;
+20. resume: the main path's trajectory run as 5 steps with
+    `return_state=True`, the `SamplingState` through an .npz file, then the
+    other 5 with `draws=None`, against the straight 10-step run (max |diff|
+    at most 1e-3 on [-1, 1]).
 
 On every path the kernel launch counts are zeroed just before it runs and
 read just after: on the guided paths (the auto-modifier request, the
-score suite's samples and the server's requests included) mode B of the quantile kernel once per
-executed step, mode A never; on the latent paths neither mode.
+score suite's samples, the server's requests, batch serving, the ensemble
+and the resumed trajectory included) mode B of the quantile kernel once per
+executed step (per rank), mode A never; on the latent paths neither mode.
 
 Then one JSON line {"kernels": [...]} (each kernel's launches on the main
 path, and on every path under "launches_by_path"), the nvidia-smi line again, and as
@@ -102,6 +125,7 @@ import glob
 import json
 import os
 import base64
+import socket
 import subprocess
 import sys
 import tempfile
@@ -113,10 +137,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as torch_dist
+import torch.multiprocessing as torch_mp
 from PIL import Image
 
 from clip_diffusion_tpu_torch.config import Config, CutoutSchedules, create_schedule
-from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig
+from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig, schedule_tables
 from clip_diffusion_tpu_torch.guidance.losses import l2_normalize
 from clip_diffusion_tpu_torch.guidance.score import PROMPT_SUITE, clip_scores, score_suite
 from clip_diffusion_tpu_torch.models import from_jax
@@ -141,9 +167,16 @@ from clip_diffusion_tpu_torch.ops.quantile import (
     histogram_quantile,
     histogram_quantile_plain,
 )
-from clip_diffusion_tpu_torch.parallel.serving import load_analysis_bank, make_analyzer
+from clip_diffusion_tpu_torch.parallel import dist as port_dist
+from clip_diffusion_tpu_torch.parallel.ensemble import build_ensemble_guided_step
+from clip_diffusion_tpu_torch.parallel.serving import (
+    load_analysis_bank,
+    make_analyzer,
+    serve_guided_batch,
+    serve_latent_batch,
+)
 from clip_diffusion_tpu_torch.pipeline import guided as guided_mod
-from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
+from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample, guided_step
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
 from clip_diffusion_tpu_torch.runtime.registry import UNetRegistry
 from clip_diffusion_tpu_torch.runtime.server import ClipDiffusionServer
@@ -156,7 +189,9 @@ from clip_diffusion_tpu_torch.text.prompt import ARTSTATION_SUFFIX, Prompt, load
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.text.zh import tw_to_simplified
 from clip_diffusion_tpu_torch.tools.clip_score import provenance_summary, suite_sampler
+from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
 from clip_diffusion_tpu_torch.utils.image_io import (
+    array_to_image,
     load_image,
     load_mask,
     normalize_image_neg_one_to_one,
@@ -196,6 +231,12 @@ GUIDED_RELEASE_PARAMS = 1286488198
 BANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "banks")
 ZH_PROMPTS = ("一隻可愛的貓坐在筆記型電腦旁", "夕陽下的燈塔 油畫", "龍 飛過 雪山")
 MARIAN_SEED = 7  # the stand-in MarianMT's host-init seed
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def phase(name: str, t_start: float) -> None:
@@ -390,13 +431,17 @@ def tiny_config() -> Config:
     )
 
 
-def tiny_models(device) -> ZooModels:
+def tiny_models(device, n_towers: int = 1) -> ZooModels:
+    """The tiny float32 UNet (seed 1) and `n_towers` tiny ViT towers tiny0,
+    tiny1, ... (seeds 2, 3, ...)."""
     unet = UNetModel(UNetConfig.tiny(64))
     unet.load_state_dict(host_init_state_dict(unet, from_jax.unet_rule, 1, torch.float32))
-    clip = CLIPModel(tiny_clip_config("tiny"))
-    clip.load_state_dict(host_init_state_dict(clip, from_jax.clip_rule, 2, torch.float32))
-    return ZooModels(unet.to(device).requires_grad_(False),
-                     {"tiny": clip.to(device).requires_grad_(False)})
+    clips = {}
+    for i in range(n_towers):
+        clip = CLIPModel(tiny_clip_config(f"tiny{i}"))
+        clip.load_state_dict(host_init_state_dict(clip, from_jax.clip_rule, 2 + i, torch.float32))
+        clips[f"tiny{i}"] = clip.to(device).requires_grad_(False)
+    return ZooModels(unet.to(device).requires_grad_(False), clips)
 
 
 def tiny_init_models(device) -> ZooModels:
@@ -414,13 +459,21 @@ def tiny_init_models(device) -> ZooModels:
                      build_lpips(device=device))
 
 
-def check_reference(dev) -> None:
+def check_reference(dev, seed: int = 7) -> None:
     """Two tiny float32 pipelines on the card against the CPU runs on the
     same weights and draws: 5 DDIM steps with a ViT tower, and 5 PLMS steps
     (7 with 2 skipped) from an init image with a ResNet tower, its aesthetic
     head and LPIPS.  Differences come from float32 sum order (cuDNN and
-    cuBLAS against the CPU kernels) carried through 5 guided steps: atol
-    1e-3 on [-1, 1] images."""
+    cuBLAS against the CPU kernels): atol 1e-3 on [-1, 1] images, held two
+    ways.  With the exact ("sort") threshold the whole trajectories are
+    compared.  With mode B's, the kernel inside the pipeline, at batch 2
+    (two rows, so a row mix-up shows), each step runs on the card and on
+    the CPU from the card's state (`resume_state`, `stop_after=1`) and its
+    x_t and pred_x0 are compared: a sum-order difference can carry a value
+    across one of mode B's 4096 bin edges and move a threshold by a bin, a
+    step of up to max|x|/4096 that a free-running pair carries into every
+    later step, while the step-wise pair starts each step from the same
+    state."""
     init = np.random.default_rng(5).uniform(-1, 1, (1, 8, 8, 3))
     init = torch.from_numpy(np.repeat(np.repeat(init, 8, 1), 8, 2).astype(np.float32))
     cases = (
@@ -431,19 +484,42 @@ def check_reference(dev) -> None:
          SamplerConfig(mode="plms", steps=7, skip_timesteps=2), init),
     )
     for label, models_fn, config, sampler, init_image in cases:
-        outs = {}
+        pipes = {}
         for device in ("cpu", dev):
-            pipe = build_pipeline(models_fn(device), config,
-                                  [("a lighthouse on a cliff", 1.0)], sampler,
-                                  use_init_losses=init_image is not None)
-            final, frames = guided_sample(pipe, _MovedDraws(7, device), init_image=init_image)
-            outs[str(device)] = frames.float().cpu()
-        cpu, gpu = outs["cpu"], outs[str(dev)]
-        err = float((cpu - gpu).abs().max())
-        if not (torch.isfinite(gpu).all() and err <= 1e-3):
-            raise AssertionError(f"{label}: GPU vs CPU max |diff| {err:.3e}")
-        print(f"{label} GPU vs CPU: frames {tuple(gpu.shape)}, max |diff| {err:.3e}",
+            models = models_fn(device)
+            pipes[str(device)] = {
+                method: build_pipeline(models, config, [("a lighthouse on a cliff", 1.0)],
+                                       dataclasses.replace(sampler, thresholding_method=method),
+                                       use_init_losses=init_image is not None)
+                for method in ("sort", "histogram")}
+        cpu, gpu = (guided_sample(pipes[d]["sort"], _MovedDraws(seed, d), init_image=init_image)[1]
+                    .float().cpu() for d in ("cpu", str(dev)))
+        if not torch.isfinite(gpu).all():
+            raise AssertionError(f"{label}: GPU frames not finite (exact threshold)")
+        sort_err = float((cpu - gpu).abs().max())
+
+        n_steps = sampler.steps - sampler.skip_timesteps
+        table, _ = guided_mod.frame_table(n_steps, 6)  # guided_sample's num_frames
+        state, step_errs = None, []
+        for pos in range(n_steps):
+            outs, states = {}, {}
+            for d in ("cpu", str(dev)):
+                _, frames, states[d] = guided_sample(
+                    pipes[d]["histogram"], _MovedDraws(seed, d), batch_size=2,
+                    init_image=init_image, resume_state=state, stop_after=1,
+                    return_state=True)
+                outs[d] = torch.stack([states[d].x, frames[table[pos]]]).float().cpu()
+            if not torch.isfinite(outs[str(dev)]).all():
+                raise AssertionError(f"{label}: GPU step {pos} not finite (mode B)")
+            step_errs.append(float((outs["cpu"] - outs[str(dev)]).abs().max()))
+            state = states[str(dev)]
+        print(f"{label} GPU vs CPU: frames {tuple(gpu.shape)}, max |diff| {sort_err:.3e} with "
+              f"the exact threshold; with mode B's at batch 2, step by step from the card's "
+              f"state (x_t and pred_x0): " + ", ".join(f"{e:.3e}" for e in step_errs),
               flush=True)
+        if not (sort_err <= 1e-3 and max(step_errs) <= 1e-3):
+            raise AssertionError(f"{label}: GPU vs CPU max |diff| {sort_err:.3e} with the exact "
+                                 f"threshold, {max(step_errs):.3e} in a step with mode B's")
 
 
 class _TimingUploader:
@@ -1408,6 +1484,269 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
           f"({rate(sr_flops, whole_us)}), {tiled_us / 1e3:.2f} ms in 128 px tiles", flush=True)
 
 
+# batch serving's requests (phase 18)
+SERVE_PROMPTS = (PROMPT, "A dragon curled around a ruined tower, matte painting.")
+LATENT_SERVE_PROMPTS = ("a lighthouse on a cliff at golden hour", "a red fox in deep snow",
+                        "an astronaut riding a horse on the moon")
+
+
+def profiled_device_ms(fn) -> float:
+    """Device milliseconds of one call of `fn`, from torch.profiler tracing
+    the device alone (no host ops: their events cost more to collect than
+    the call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA) / 1e3
+    if ms <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return ms
+
+
+def run_batch_serving(models: ZooModels, config: Config, latent_pipe, text_encode,
+                      out_dir: str) -> dict:
+    """Phase 18 on the process group's one rank: `serve_guided_batch` (2
+    prompts x 2 seeds, 5 DDIM steps at the main path's width) and
+    `serve_latent_batch` (3 prompts x 3 seeds, CFG DDIM, 10 steps, decoded).
+    Each call is timed with its launch counts, checked, then called again
+    under torch.profiler for its device time.  Returns the launch counts
+    by path."""
+    steps, seeds = 5, 2
+    pipe = build_pipeline(models, config, [[(p, 1.0)] for p in SERVE_PROMPTS],
+                          SamplerConfig(steps=steps, eta=0.8))
+    serve = lambda: serve_guided_batch(pipe, len(SERVE_PROMPTS), seeds, base_seed=1234)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    final, frames = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    guided_launches = _launches()
+    peak = torch.cuda.max_memory_allocated()
+    batch = len(SERVE_PROMPTS) * seeds
+    if guided_launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+        raise AssertionError(f"serve_guided_batch: quantile launches in {steps} steps: "
+                             f"{guided_launches}")
+    if tuple(final.shape) != (batch, config.height, config.width, 3) or not bool(
+            torch.isfinite(frames).all()):
+        raise AssertionError(f"serve_guided_batch: final {tuple(final.shape)}, finite "
+                             f"{bool(torch.isfinite(frames).all())}")
+    seed_diff = float((final[0] - final[1]).abs().max())
+    prompt_diff = float((final[0] - final[seeds]).abs().max())
+    if seed_diff < 1e-3 or prompt_diff < 1e-3:
+        raise AssertionError(f"serve_guided_batch: seeds differ by {seed_diff}, prompts by "
+                             f"{prompt_diff}")
+    os.makedirs(out_dir, exist_ok=True)
+    for i, img in enumerate(((final + 1) / 2).float().cpu().numpy()):
+        array_to_image(img).save(os.path.join(out_dir, f"serve_guided_{i}.png"))
+    dev_ms = profiled_device_ms(serve) / steps
+    print(f"serve_guided_batch: {len(SERVE_PROMPTS)} prompts x {seeds} seeds at "
+          f"{config.width}x{config.height}, {steps} steps in {wall:.2f} s wall "
+          f"({wall / steps * 1e3:.1f} ms/step, {wall / batch:.2f} s/image); device "
+          f"{dev_ms:.1f} ms/step (profiled call); peak memory {peak / 2**30:.2f} GiB; "
+          f"max |diff| between the seeds of a prompt {seed_diff:.3f}, between prompts "
+          f"{prompt_diff:.3f}; quantile kernel launches {guided_launches}", flush=True)
+
+    steps, seeds = 10, 3
+    ctx_c, ctx_u = text_encode(list(LATENT_SERVE_PROMPTS)), text_encode([""])
+    serve = lambda: serve_latent_batch(latent_pipe, ctx_c, ctx_u, seeds_per_prompt=seeds,
+                                       base_seed=5, steps=steps)
+    _zero_launches()
+    t0 = time.perf_counter()
+    images = serve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    latent_launches = _check_no_launches("serve_latent_batch")
+    batch = len(LATENT_SERVE_PROMPTS) * seeds
+    ok = bool(torch.isfinite(images).all()) and float(images.min()) >= 0 and float(
+        images.max()) <= 1
+    if tuple(images.shape) != (batch, 256, 256, 3) or not ok:
+        raise AssertionError(f"serve_latent_batch: images {tuple(images.shape)}, finite and "
+                             f"in [0, 1]: {ok}")
+    seed_diff = float((images[0] - images[1]).abs().max())
+    if seed_diff < 1e-3:
+        raise AssertionError(f"serve_latent_batch: the seeds of a prompt differ by {seed_diff}")
+    for i, img in enumerate(images.float().cpu().numpy()):
+        array_to_image(img).save(os.path.join(out_dir, f"serve_latent_{i}.png"))
+    dev_ms = profiled_device_ms(serve) / steps
+    print(f"serve_latent_batch: {len(LATENT_SERVE_PROMPTS)} prompts x {seeds} seeds at 256x256, "
+          f"CFG DDIM, {steps} steps, decoded, in {wall:.2f} s wall ({wall / steps * 1e3:.1f} "
+          f"ms/step with the decode); device {dev_ms:.2f} ms/step with the decode (profiled "
+          f"call); max |diff| between the seeds of a prompt {seed_diff:.3f}", flush=True)
+    return {"serve_guided_batch": guided_launches, "serve_latent_batch": latent_launches}
+
+
+def run_full_width_ensemble(dev, zoo: ZooModels, config: Config, steps: int = 5) -> dict:
+    """Phase 19 (a): the ensemble step with ViT-L/14 alone on the process
+    group's one rank against `guided_step` with unshared cutouts, from the
+    reference trajectory's x_t at each step: within 1e-5 of the image
+    scale (0 expected: no op with atomics is on the path); the steps' peak
+    memory, and the first step's device time from a profiled rerun.
+    Returns the ensemble steps' launch counts."""
+    config = dataclasses.replace(config, share_cutouts_across_perceptors=False)
+    pipe = build_pipeline(zoo_subset(zoo, ("ViT-L/14",)), config, [(PROMPT, 1.0)],
+                          SamplerConfig(steps=steps, eta=0.8))
+    tables = schedule_tables(pipe.schedule, dev)
+    draws = TorchDraws(4321, dev)
+    x = draws.initial_noise((1, config.height, config.width, 3))
+    ref = []
+    with torch.no_grad():
+        for step in range(steps - 1, -1, -1):
+            x_next, pred = guided_step(pipe, tables, x, step, draws)
+            ref.append((step, x, x_next, pred))
+            x = x_next
+        step_fn = build_ensemble_guided_step(pipe)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        err, scale = 0.0, 0.0
+        for step, x_in, x_ref, pred_ref in ref:
+            x_ens, pred_ens = step_fn(tables, x_in, step, draws)
+            err = max(err, float((x_ens - x_ref).abs().max()),
+                      float((pred_ens - pred_ref).abs().max()))
+            scale = max(scale, float(x_ref.abs().max()))
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = _launches()
+        dev_ms = profiled_device_ms(lambda: step_fn(tables, ref[0][1], ref[0][0], draws))
+    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+        raise AssertionError(f"ensemble: quantile launches in {steps} steps: {launches}")
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"ensemble vs guided_step: max |diff| {err:.3e}, scale {scale:.3f}")
+    print(f"ensemble (ViT-L/14 on 1 rank, {torch_dist.get_backend()}) vs guided_step with "
+          f"unshared cutouts: {steps} steps at {config.width}x{config.height}, max |diff| "
+          f"{err:.3e} (x_t scale {scale:.3f}), {wall / steps * 1e3:.1f} ms/step; device "
+          f"{dev_ms:.1f} ms in the first step (profiled); peak memory {peak / 2**30:.2f} GiB; "
+          f"quantile kernel launches {launches}", flush=True)
+    return launches
+
+
+TINY_SERVE_PROMPTS = ("a lighthouse on a cliff", "a dragon over snowy mountains")
+
+
+def _tiny_paths(models: ZooModels, device, ensemble: bool):
+    """Phase 19 (b)'s two tiny runs on this process's rank(s): 3 steps at
+    batch 2, of the ensemble (one tower per rank) or, for the reference,
+    of `guided_step` with unshared cutouts; and serve_guided_batch (2
+    prompts x 2 seeds, 3 steps); each with its launch counts."""
+    config = tiny_config()
+    sampler = SamplerConfig(steps=3, eta=0.8)
+    ens_pipe = build_pipeline(models, dataclasses.replace(
+        config, share_cutouts_across_perceptors=False), [(TINY_SERVE_PROMPTS[0], 1.0)], sampler)
+    tables = schedule_tables(ens_pipe.schedule, device)
+    draws = TorchDraws(22, device)
+    x = draws.initial_noise((2, config.height, config.width, 3))
+    step_fn = (build_ensemble_guided_step(ens_pipe) if ensemble
+               else lambda *args: guided_step(ens_pipe, *args))
+    _zero_launches()
+    steps = []
+    with torch.no_grad():
+        for step in range(2, -1, -1):
+            x, pred = step_fn(tables, x, step, draws)
+            steps.append((x.cpu(), pred.cpu()))
+    ens_launches = _launches()
+    serve_pipe = build_pipeline(models, config, [[(p, 1.0)] for p in TINY_SERVE_PROMPTS], sampler)
+    _zero_launches()
+    final, frames = serve_guided_batch(serve_pipe, len(TINY_SERVE_PROMPTS), 2, base_seed=21)
+    return {"ensemble": steps, "serve": frames.cpu(), "launches": (ens_launches, _launches())}
+
+
+def _tiny_rank(rank: int, world: int, init_file: str, out: str, device: str) -> None:
+    """One of phase 19 (b)'s processes: gloo, every rank on `device`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = port_dist.init(device=device, backend="gloo", init_method=f"file://{init_file}",
+                         rank=rank, world_size=world)
+    try:
+        torch.save(_tiny_paths(tiny_models(dev, 2), dev, True), f"{out}.{rank}")
+    finally:
+        torch_dist.destroy_process_group()
+
+
+def run_two_rank_gloo(dev) -> None:
+    """Phase 19 (b): the tiny two-tower runs as 2 processes sharing the card
+    over gloo (NCCL refuses two ranks on one GPU) against this process
+    alone (no process group): within 1e-5 each; mode B once per step on
+    every rank."""
+    ref = _tiny_paths(tiny_models(dev, 2), dev, False)
+    card = "cuda:0" if dev.type == "cuda" else "cpu"  # both ranks share the one card
+    with tempfile.TemporaryDirectory(prefix="gloo_ranks_") as tmp:
+        t0 = time.perf_counter()
+        ctx = torch_mp.start_processes(
+            _tiny_rank, args=(2, os.path.join(tmp, "pg"), os.path.join(tmp, "out"), card),
+            nprocs=2, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > 300:
+                    raise TimeoutError("the two gloo ranks outlasted 300 s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(10)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"out.{r}")) for r in range(2)]
+    ens_err = max(float((a - b).abs().max()) for rank in ranks
+                  for got, want in zip(rank["ensemble"], ref["ensemble"])
+                  for a, b in zip(got, want))
+    serve_err = max(float((rank["serve"] - ref["serve"]).abs().max()) for rank in ranks)
+    per_step = {"histogram_quantile": 0, "histogram_abs_quantile": 3}
+    launches = [rank["launches"] for rank in ranks]
+    if not (ens_err <= 1e-5 and serve_err <= 1e-5):
+        raise AssertionError(f"two ranks over gloo vs one process: ensemble {ens_err:.3e}, "
+                             f"serve_guided_batch {serve_err:.3e}")
+    if any(lc != (per_step, per_step) for lc in launches):
+        raise AssertionError(f"two ranks over gloo: quantile launches per rank {launches}")
+    print(f"two ranks over gloo on one card (tiny f32, two ViT towers; {wall:.1f} s with "
+          f"start-up): ensemble vs single-process steps max |diff| {ens_err:.3e}, "
+          f"serve_guided_batch world 2 vs world 1 max |diff| {serve_err:.3e}; quantile "
+          f"kernel launches per rank (ensemble, serve) {launches[0]}", flush=True)
+
+
+def run_resume(dev, models: ZooModels, config: Config, steps: int) -> dict:
+    """Phase 20: the main path's trajectory straight, then as `steps // 2`
+    steps with `return_state=True`, the state through an .npz file, and
+    the rest with `draws=None`; the pair's peak memory, and the device time
+    per step of the resumed half from a profiled rerun.  Returns the
+    resumed pair's launch counts."""
+    pipe = build_pipeline(models, config, [(PROMPT, 1.0)], SamplerConfig(steps=steps, eta=0.8))
+    straight, _ = guided_sample(pipe, TorchDraws(1234, dev))
+    half = steps // 2
+    with tempfile.TemporaryDirectory(prefix="resume_") as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        _, _, state = guided_sample(pipe, TorchDraws(1234, dev), stop_after=half, return_state=True)
+        path = os.path.join(tmp, "state.npz")
+        state.save(path)
+        loaded = SamplingState.load(path)
+        resumed, _ = guided_sample(pipe, None, resume_state=loaded)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        size = os.path.getsize(path)
+    peak = torch.cuda.max_memory_allocated()
+    launches = _launches()
+    dev_ms = profiled_device_ms(lambda: guided_sample(pipe, None, resume_state=loaded))
+    dev_ms /= steps - half
+    err = float((resumed - straight).abs().max())
+    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+        raise AssertionError(f"resume: quantile launches in {steps} steps: {launches}")
+    if loaded.step != steps - 1 - half or not err <= 1e-3:
+        raise AssertionError(f"resume: state step {loaded.step}, max |diff| {err:.3e}")
+    print(f"resume: {half} + {steps - half} steps through a {size / 2**20:.1f} MiB .npz "
+          f"(state step {loaded.step}) in {wall:.2f} s vs the straight {steps}-step run: "
+          f"max |diff| {err:.3e}; device {dev_ms:.1f} ms/step over the resumed steps "
+          f"(profiled); peak memory {peak / 2**30:.2f} GiB; quantile kernel launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -1499,6 +1838,22 @@ def main(argv=None) -> int:
 
     phase("latent profile", t_start)
     profile_latent(dev, latent_pipe, text_encode, esrgan, args.out)
+
+    phase("batch serving", t_start)
+    port_dist.init(dev, init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        print(f"process group: {torch_dist.get_backend()}, world size "
+              f"{torch_dist.get_world_size()}", flush=True)
+        by_path.update(run_batch_serving(main_models, main_config, latent_pipe, text_encode,
+                                         os.path.join(args.out, "serving")))
+        phase("ensemble", t_start)
+        by_path["ensemble"] = run_full_width_ensemble(dev, zoo, main_config)
+    finally:
+        torch_dist.destroy_process_group()
+    run_two_rank_gloo(dev)
+
+    phase("resume", t_start)
+    by_path["resume"] = run_resume(dev, main_models, main_config, args.steps)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     for rec in records:

@@ -123,9 +123,9 @@ def _affine_shear(img, theta, ty, tx):
     c = (s - 1) / 2.0
     A = torch.cos(theta)
     B = torch.sin(theta)
-    small = torch.abs(B) < 1e-8
-    alpha = torch.where(small, torch.zeros_like(B),
-                        (A - 1.0) / torch.where(small, torch.ones_like(B), B))
+    # (A - 1) / B, as -tan(theta / 2): the difference cancels near theta = 0,
+    # where one ulp of cos moves the shear by up to 1e-5 pixels per row
+    alpha = -torch.tan(theta / 2.0)
     beta = B
     u2 = -(A * ty + B * tx)
     u1 = -(-B * ty + A * tx) - alpha * u2

@@ -1,9 +1,13 @@
 """The service API surface: seed issuance, settings updates, random prompts,
-result retrieval and CLIP image analysis.
+result retrieval and CLIP image analysis; and batch serving over GPUs.
 
-Counterpart of the service part of `clip_diffusion_tpu.parallel.serving`.
-Batch serving (`serve_guided_batch`, `serve_latent_batch`) is not ported
-yet (ROADMAP Queue 1 item 14).
+Counterpart of `clip_diffusion_tpu.parallel.serving`.  `serve_guided_batch`
+and `serve_latent_batch` run one request of (prompt x seed) images as one
+batch split by rows over the ranks of a process group (`parallel/dist.py`,
+one process per GPU; launched with `torchrun --nproc_per_node=N`): each
+rank samples its rows with its row view of the batch's draws, and every
+rank gets the whole batch back.  The draws are keyed, so the result does
+not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from clip_diffusion_tpu_torch.config import Config
 from clip_diffusion_tpu_torch.guidance.losses import l2_normalize
 from clip_diffusion_tpu_torch.models.clip.model import clip_normalize
 from clip_diffusion_tpu_torch.ops.resize import resize_center_crop
+from clip_diffusion_tpu_torch.parallel.dist import gather_rows, row_range
+from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample
+from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, latent_sample
 from clip_diffusion_tpu_torch.text.prompt import DATA_ROOT
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.utils.seeds import seed_as_string
@@ -196,3 +203,71 @@ def make_analyzer(models, bank: Optional[AnalysisBank] = None,
         return analyze_image(img, embed_fns, bank, top_k, resolution)
 
     return analyze
+
+
+# --------------------------------------------------------------------------
+# Batch serving over the ranks of a process group
+# --------------------------------------------------------------------------
+
+def serve_guided_batch(pipe, prompts_count: int, seeds_per_prompt: int, base_seed: int = 0,
+                       group=None):
+    """`prompts_count x seeds_per_prompt` guided images as one batch over the
+    ranks of `group` -> (final, frames) of the whole batch on every rank.
+
+    Per-prompt embeddings, (prompts_count, P, D) and weights (prompts_count,
+    P) in each perceptor (`zoo.build_pipeline` with one prompt list per
+    prompt), are repeated `seeds_per_prompt` times, so row i has prompt
+    i // seeds_per_prompt; 2-D embeddings are one prompt shared by all
+    rows.  Each rank runs `guided_sample` on its rows with
+    `TorchDraws(base_seed).rows(lo, hi)` on `pipe.device`."""
+    batch = prompts_count * seeds_per_prompt
+    lo, hi = row_range(batch, group)
+    perceptors = []
+    for perc in pipe.perceptors:
+        te, tw = perc.text_embeddings, perc.text_weights
+        if te.ndim == 3:
+            if te.shape[0] != prompts_count:
+                raise ValueError(f"params carry {te.shape[0]} prompts, expected {prompts_count}")
+            te = te.repeat_interleave(seeds_per_prompt, dim=0)[lo:hi]
+            tw = tw.repeat_interleave(seeds_per_prompt, dim=0)[lo:hi]
+        perceptors.append(dataclasses.replace(perc, text_embeddings=te, text_weights=tw))
+    rank_pipe = dataclasses.replace(pipe, perceptors=tuple(perceptors))
+    draws = TorchDraws(base_seed, pipe.device).rows(lo, hi)
+    _, frames = guided_sample(rank_pipe, draws, batch_size=hi - lo)
+    frames = gather_rows(frames, dim=1, group=group)
+    return frames[-1], frames
+
+
+def serve_latent_batch(pipe, context_cond, context_uncond=None, seeds_per_prompt: int = 1,
+                       base_seed: int = 0, group=None, height: int = 256, width: int = 256,
+                       steps: int = 50, guidance_scale: float = 5.0, eta: float = 0.0,
+                       mode: str = "ddim", decode: bool = True):
+    """N prompts x `seeds_per_prompt` latent images as one CFG batch over
+    the ranks of `group` -> decoded [0, 1] pixels (B, H, W, 3) when
+    `decode`, else latents (B, h, w, C), the whole batch on every rank.
+
+    `context_cond`: (N, T, D) per-prompt conditioning ((T, D) is one
+    prompt), repeated `seeds_per_prompt` times.  `context_uncond`: (1 | N |
+    B, T, D) unconditional rows for CFG; CFG is off when it is None or
+    `guidance_scale` is 0.  Each rank samples its rows with
+    `TorchDraws(base_seed).rows(lo, hi)` on the contexts' device."""
+    ctx_c = context_cond if context_cond.ndim == 3 else context_cond[None]
+    n_prompts = ctx_c.shape[0]
+    batch = n_prompts * seeds_per_prompt
+    ctx_c = ctx_c.repeat_interleave(seeds_per_prompt, dim=0)
+    ctx_u = None
+    if context_uncond is not None and guidance_scale > 0:
+        ctx_u = context_uncond if context_uncond.ndim == 3 else context_uncond[None]
+        if ctx_u.shape[0] == 1:
+            ctx_u = ctx_u.expand((batch,) + tuple(ctx_u.shape[1:]))
+        elif ctx_u.shape[0] == n_prompts:
+            ctx_u = ctx_u.repeat_interleave(seeds_per_prompt, dim=0)
+        elif ctx_u.shape[0] != batch:
+            raise ValueError(f"context_uncond carries {ctx_u.shape[0]} rows; expected "
+                             f"1, {n_prompts} (per prompt) or {batch} (per image)")
+    lo, hi = row_range(batch, group)
+    draws = TorchDraws(base_seed, ctx_c.device).rows(lo, hi)
+    z = latent_sample(pipe, draws, ctx_c[lo:hi], None if ctx_u is None else ctx_u[lo:hi],
+                      batch_size=hi - lo, height=height, width=width, steps=steps,
+                      guidance_scale=guidance_scale, eta=eta, mode=mode)
+    return gather_rows(decode_latents(pipe, z) if decode else z, group=group)

@@ -28,14 +28,21 @@ than one chunk's activations.
 Randomness comes from a `draws` object: `initial_noise`, `step_noise` and
 `cutouts` (the per-slot crop, flip, noise, affine, gray and jitter values).
 `TorchDraws` draws them, and the latent pipeline's `inpaint_noise`, from a
-`torch.Generator` on the device; tests pass an object that replays the JAX
+`torch.Generator` on the device seeded afresh from its key, the draw's
+(purpose, step, group) and the row, as the JAX package folds the step
+and group into its key; tests pass an object that replays the JAX
 package's key chain.
+
+`guided_sample` resumes a trajectory from a `utils.checkpoint.
+SamplingState` (`resume_state`, `return_state`, `stop_after`): keyed draws
+make the resumed steps draw what the uninterrupted run drew.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +78,9 @@ from clip_diffusion_tpu_torch.guidance.losses import (
 )
 from clip_diffusion_tpu_torch.models.clip.model import clip_normalize
 from clip_diffusion_tpu_torch.models.unet import split_model_output
+from clip_diffusion_tpu_torch.ops.augment import AugmentDraws
 from clip_diffusion_tpu_torch.ops.quantile import dynamic_threshold_fast
+from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,26 +114,87 @@ class GuidedPipeline:
                           max_inner=cs.max_inner_cuts)
 
 
+# the first word of each draw's key: what the draw is for
+_INIT, _STEP, _INPAINT, _CUTOUTS, _FOLD = range(5)
+
+
+def derive_seed(seed: int, *words: int) -> int:
+    """A 64-bit generator seed for (seed, words...), derived on the host."""
+    return int(np.random.SeedSequence([int(seed), *words]).generate_state(1, np.uint64)[0])
+
+
 class TorchDraws:
-    """The pipeline's random draws from one `torch.Generator` on `device`."""
+    """The pipeline's random draws as a function of a key: each row of each
+    call is drawn from the draws' `torch.Generator` on `device`, seeded
+    afresh from (seed, purpose, step[, group], row), so a draw does not
+    depend on what was drawn before it, on which steps and groups a process
+    skips, or on how many rows are drawn with it.  A row view (`rows`)
+    draws only its rows of a batch."""
 
     def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        self.gen = torch.Generator(self.device).manual_seed(int(seed))
+        self.seed = int(seed)
+        self.span: Optional[Tuple[int, int]] = None  # the rows of a row view
+        self._generator: Optional[torch.Generator] = None  # re-seeded per row
+
+    def key_data(self) -> np.ndarray:
+        """The seed as uint32 words, low word first (`SamplingState.key_data`)."""
+        return np.asarray([self.seed & 0xFFFFFFFF, self.seed >> 32], np.uint32)
+
+    @classmethod
+    def from_key_data(cls, words, device) -> "TorchDraws":
+        words = np.asarray(words, np.uint32)
+        return cls(int(words[0]) | int(words[1]) << 32, device)
+
+    def fold(self, sub: int) -> "TorchDraws":
+        """Draws of their own for sub-batch `sub`, as JAX's fold_in(key, sub)."""
+        other = copy.copy(self)
+        other.seed, other._generator = derive_seed(self.seed, _FOLD, sub), None
+        return other
+
+    def rows(self, lo: int, hi: int) -> "TorchDraws":
+        """The draws of rows [lo, hi) of a batch: the rows a single process
+        draws for the whole batch, bit for bit on one device type."""
+        if not 0 <= lo < hi:
+            raise ValueError(f"rows [{lo}, {hi})")
+        other = copy.copy(self)
+        other.span, other._generator = (lo, hi), None
+        return other
+
+    def _gens(self, n: int, *words: int):
+        """A generator seeded for each of the `n` rows asked for, in turn."""
+        lo, hi = self.span or (0, n)
+        if n != hi - lo:
+            raise ValueError(f"draws for rows [{lo}, {hi}) asked for {n} rows")
+        if self._generator is None:
+            self._generator = torch.Generator(self.device)
+        for row in range(lo, hi):
+            yield self._generator.manual_seed(derive_seed(self.seed, *words, row))
+
+    def _normal(self, shape, *words: int) -> torch.Tensor:
+        row = (1,) + tuple(shape[1:])
+        return torch.cat([torch.randn(row, generator=g, device=self.device)
+                          for g in self._gens(shape[0], *words)])
 
     def initial_noise(self, shape) -> torch.Tensor:
-        return torch.randn(shape, generator=self.gen, device=self.device)
+        return self._normal(shape, _INIT)
 
     def step_noise(self, step: int, shape) -> torch.Tensor:
-        return torch.randn(shape, generator=self.gen, device=self.device)
+        return self._normal(shape, _STEP, step)
 
     def inpaint_noise(self, step: int, shape) -> torch.Tensor:
         """The latent pipeline's re-noise of the known region."""
-        return torch.randn(shape, generator=self.gen, device=self.device)
+        return self._normal(shape, _INPAINT, step)
 
     def cutouts(self, step: int, group: int, batch: int, repeats: int,
                 spec: CutoutSpec, n_ov: int, n_in: int) -> CutDraws:
-        return draw_cutouts(self.gen, batch, repeats, spec, n_ov, n_in, self.device)
+        parts = [draw_cutouts(g, 1, repeats, spec, n_ov, n_in, self.device)
+                 for g in self._gens(batch, _CUTOUTS, step, group)]
+        if len(parts) == 1:
+            return parts[0]
+        return CutDraws(torch.cat([d.crop for d in parts]), AugmentDraws(*(
+            torch.cat([getattr(d.aug, f.name) for d in parts])
+            for f in dataclasses.fields(AugmentDraws))))
 
 
 def schedule_index(schedule: NoiseSchedule, step: int) -> int:
@@ -134,14 +204,20 @@ def schedule_index(schedule: NoiseSchedule, step: int) -> int:
     return int(np.clip(999 - int(np.floor(t_scaled)), 0, 999))
 
 
-def perceptor_groups(pipe: GuidedPipeline) -> List[Tuple[int, List[int]]]:
-    """(resolution, perceptor indices) per cutout batch, in order."""
+def perceptor_groups(pipe: GuidedPipeline, subset: Optional[Sequence[int]] = None
+                     ) -> List[Tuple[int, int, List[int]]]:
+    """(draws key, resolution, perceptor indices) per cutout batch, in order.
+    `subset`: one group per listed perceptor, keyed by its global index,
+    which is its key in the run with `share_cutouts_across_perceptors`
+    off."""
+    if subset is not None:
+        return [(i, pipe.perceptors[i].input_resolution, [i]) for i in subset]
     if not pipe.config.share_cutouts_across_perceptors:
-        return [(p.input_resolution, [i]) for i, p in enumerate(pipe.perceptors)]
+        return [(i, p.input_resolution, [i]) for i, p in enumerate(pipe.perceptors)]
     groups: Dict[int, List[int]] = {}
     for i, p in enumerate(pipe.perceptors):
         groups.setdefault(p.input_resolution, []).append(i)
-    return list(groups.items())
+    return [(gi, res, members) for gi, (res, members) in enumerate(groups.items())]
 
 
 def _prompt_distance(embs, perc: Perceptor):
@@ -178,10 +254,17 @@ def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
 
 
 def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
-                      init_image: Optional[torch.Tensor] = None):
+                      init_image: Optional[torch.Tensor] = None,
+                      perceptor_subset: Optional[Sequence[int]] = None,
+                      include_image_terms: bool = True):
     """d(loss)/dx at respaced step `step` -> (grad, pred_x0), both (B,H,W,3).
     `init_image` (1, H, W, 3) in [-1, 1] is the target of the LPIPS and
-    MS-SSIM terms when `pipe.use_init_losses` is on."""
+    MS-SSIM terms when `pipe.use_init_losses` is on.
+
+    `perceptor_subset` limits the CLIP terms to these perceptors, each with
+    cutouts of its own keyed by its global index; `include_image_terms=
+    False` drops the whole-image terms (TV, range, LPIPS, MS-SSIM).  The
+    ensemble (`parallel/ensemble.py`) sums such gradients over ranks."""
     cfg = pipe.config
     b = x.shape[0]
     with torch.enable_grad():
@@ -194,12 +277,12 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
 
         outputs, out_grads = [], []
         image_loss = None
-        if cfg.denoise_scale > 0:
+        if include_image_terms and cfg.denoise_scale > 0:
             image_loss = cfg.denoise_scale * torch.sum(total_variational_loss(denoised))
-        if cfg.range_scale > 0:
+        if include_image_terms and cfg.range_scale > 0:
             term = cfg.range_scale * torch.sum(rgb_range_loss(denoised))
             image_loss = term if image_loss is None else image_loss + term
-        if pipe.use_init_losses:
+        if include_image_terms and pipe.use_init_losses:
             if pipe.lpips_fn is not None and cfg.LPIPS_scale > 0:
                 term = cfg.LPIPS_scale * torch.sum(pipe.lpips_fn(denoised, init_image))
                 image_loss = term if image_loss is None else image_loss + term
@@ -215,9 +298,9 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
             ov_t, in_t, power_t, gray_t = cfg.cutout_schedules.as_arrays()
             n_ov, n_in = int(ov_t[idx]), int(in_t[idx])
             gdtype = cfg.guidance_torch_dtype
-            for gi, (resolution, members) in enumerate(perceptor_groups(pipe)):
+            for key, resolution, members in perceptor_groups(pipe, perceptor_subset):
                 spec = pipe.cutout_spec(resolution)
-                cd = draws.cutouts(step, gi, b, cfg.num_cutout_batches, spec, n_ov, n_in)
+                cd = draws.cutouts(step, key, b, cfg.num_cutout_batches, spec, n_ov, n_in)
                 cuts, w = make_cutouts_batch(
                     denoised.to(gdtype), cd, n_ov, n_in, float(power_t[idx]),
                     float(gray_t[idx]), spec, repeats=cfg.num_cutout_batches,
@@ -279,17 +362,24 @@ def apply_sampler_update(sampler: SamplerConfig, tables, x, step: int,
     return x_next, pred_x0_final
 
 
+def step_from_gradient(pipe: GuidedPipeline, tables, x, step: int, draws, grad,
+                       pred_x0_raw, history: Optional[PLMSHistory] = None):
+    """The rest of a guided step once d(loss)/dx is known: clamp, step
+    noise, threshold and update -> (x_next, pred_x0_final)."""
+    guidance = clamp_guidance_grad(-grad, pipe.config.grad_threshold)
+    ddim = pipe.sampler.mode == "ddim"
+    noise = draws.step_noise(step, x.shape) if ddim and step > 0 else None
+    return apply_sampler_update(pipe.sampler, tables, x, step, pred_x0_raw,
+                                guidance, noise, history)
+
+
 def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws,
                 init_image: Optional[torch.Tensor] = None,
                 history: Optional[PLMSHistory] = None):
     """One full guided step -> (x_next, pred_x0_final); PLMS needs
     `history`, which it advances."""
     grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image)
-    guidance = clamp_guidance_grad(-grad, pipe.config.grad_threshold)
-    ddim = pipe.sampler.mode == "ddim"
-    noise = draws.step_noise(step, x.shape) if ddim and step > 0 else None
-    return apply_sampler_update(pipe.sampler, tables, x, step, pred_x0_raw,
-                                guidance, noise, history)
+    return step_from_gradient(pipe, tables, x, step, draws, grad, pred_x0_raw, history)
 
 
 def frame_table(n_steps: int, num_frames: int):
@@ -309,30 +399,64 @@ def guided_sample(
     num_frames: int = 6,
     progress_callback: Optional[Callable] = None,
     progress_every: int = 5,
+    resume_state: Optional[SamplingState] = None,
+    return_state: bool = False,
+    stop_after: Optional[int] = None,
 ):
     """Run the full guided trajectory -> (final_images, frames): the final
     pred_x0 in [-1, 1] NHWC and `num_frames` evenly spaced pred_x0 frames
     (F, B, H, W, 3).  `init_image` (1, H, W, 3) in [-1, 1]: the trajectory
     starts from it diffused to the first executed step, with noise from
     `draws.initial_noise`.  `progress_callback(position, pred_x0)` fires
-    every `progress_every` positions."""
+    every `progress_every` positions.
+
+    Resume: `resume_state` continues a trajectory where it stopped (its
+    frames before that position stay zero); with `draws=None` the draws
+    are rebuilt from its key on `pipe.device`, and draws under another key
+    raise.  `stop_after` runs at most that many steps; `return_state=True`
+    also returns the `SamplingState` after the last executed step."""
     cfg, sampler = pipe.config, pipe.sampler
     shape = (batch_size, cfg.height, cfg.width, 3)
+    if resume_state is not None:
+        saved = np.asarray(resume_state.key_data, np.uint32)
+        if draws is None:
+            draws = TorchDraws.from_key_data(saved, pipe.device)
+        elif not np.array_equal(draws.key_data(), saved):
+            raise ValueError("resume_state was checkpointed under a different draws key; "
+                             "pass draws=None to resume with the saved key")
+    elif draws is None:
+        raise ValueError("guided_sample: draws are required unless resuming")
     tables = schedule_tables(pipe.schedule, pipe.device)
     start = pipe.schedule.num_steps - sampler.skip_timesteps - 1
     n_steps = start + 1
     table, n_frames = frame_table(n_steps, num_frames)
-    history = PLMSHistory(init_history(shape, pipe.device)) if sampler.mode == "plms" else None
     with torch.no_grad():
-        x = draws.initial_noise(shape).to(torch.float32)
+        if resume_state is None:
+            start_pos = 0
+            x = draws.initial_noise(shape).to(torch.float32)
+            if init_image is not None:
+                x = q_sample(init_image.to(device=pipe.device, dtype=torch.float32).expand(shape),
+                             tables, start, x)
+            history = PLMSHistory(init_history(shape, pipe.device))
+        else:
+            start_pos = start - int(resume_state.step)  # the state's next step counts down
+            x = resume_state.x.to(device=pipe.device, dtype=torch.float32)
+            history = PLMSHistory(resume_state.eps_history.to(device=pipe.device,
+                                                              dtype=torch.float32),
+                                  int(resume_state.history_count))
         if init_image is not None:
             init_image = init_image.to(device=pipe.device, dtype=torch.float32)
-            x = q_sample(init_image.expand(shape), tables, start, x)
+        end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
+        plms = history if sampler.mode == "plms" else None
         frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
-        for pos, step in enumerate(range(start, -1, -1)):
-            x, pred_x0 = guided_step(pipe, tables, x, step, draws, init_image, history)
+        for pos in range(start_pos, end_pos):
+            x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image, plms)
             if table[pos] >= 0:
                 frames[table[pos]] = pred_x0
             if progress_callback is not None and pos % progress_every == 0:
                 progress_callback(pos, pred_x0)
+    if return_state:
+        state = SamplingState(x=x, step=start - end_pos, eps_history=history.eps,
+                              history_count=history.count, key_data=draws.key_data())
+        return frames[-1], frames, state
     return frames[-1], frames

@@ -18,9 +18,10 @@ the VQ-f8 first stage.
 Randomness comes from a `draws` object: `initial_noise(shape)`,
 `step_noise(i, shape)` (drawn only where sigma is not 0) and
 `inpaint_noise(i, shape)`, with i the table index.  `pipeline.guided.
-TorchDraws` draws them from a `torch.Generator`; tests replay the JAX
-package's key chain.  Nothing here takes a gradient: the public functions
-run under `torch.inference_mode()`.
+TorchDraws` draws them from a `torch.Generator` seeded for each draw and
+row from its key, purpose and i; tests replay the JAX package's key
+chain.  Nothing here takes a gradient: the public functions run under
+`torch.inference_mode()`.
 """
 
 from __future__ import annotations

@@ -84,10 +84,11 @@ def guided_diffusion_sample(
     the LPIPS (when `LPIPS_scale > 0`) and MS-SSIM (when `MS_SSIM_scale >
     0`) terms pull the trajectory towards it.
     `images_per_dispatch` caps the batch per trajectory; larger
-    `num_batches` run as sequential sub-batches drawing from the same
-    generator.  `save_every_step` writes a PNG of pred_x0 for every step
-    under <output_dir>/guided/steps/; the every-5-step progress upload keeps
-    its contract either way."""
+    `num_batches` run as sequential sub-batches, sub-batch k > 0 with the
+    draws `fold(k)` of its own, as the JAX package folds k into its key.
+    `save_every_step` writes a PNG of pred_x0 for every step under
+    <output_dir>/guided/steps/; the every-5-step progress upload keeps its
+    contract either way."""
     device = resolve_device(device)
     config = config or Config()
     uploader = uploader or LocalUploader(output_dir)
@@ -159,7 +160,7 @@ def guided_diffusion_sample(
         b = min(chunk, num_batches - done)
         store_task_state("current_batch", sub)
         final, frames = _run_guided(
-            pipe, draws, batch_size=b, init_image=init,
+            pipe, draws if sub == 0 else draws.fold(sub), batch_size=b, init_image=init,
             progress_callback=progress_cb, progress_every=progress_every,
         )
         finals.append(final.cpu().numpy())

@@ -1,16 +1,20 @@
-"""Loading model weights from public torch release files.
+"""Loading model weights from public torch release files, and the sampler
+state of a trajectory for preemption-safe resume.
 
-Counterpart of the parameter half of `clip_diffusion_tpu.utils.checkpoint`
-(the sampling-state resume, `SamplingState`, comes with the segmented
-runner).  `load_validated` is the one validated-load sequence that the zoo
-(`zoo.load_or_init`) and the serving registry (`runtime/registry.py`)
-share, so their strict-load policy cannot drift apart.
+Counterpart of `clip_diffusion_tpu.utils.checkpoint`.  `load_validated` is
+the one validated-load sequence that the zoo (`zoo.load_or_init`) and the
+serving registry (`runtime/registry.py`) share, so their strict-load policy
+cannot drift apart.  `SamplingState` is what `pipeline.guided.guided_sample`
+needs to continue a trajectory in a new process, in the JAX package's
+`.npz` layout.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -35,3 +39,39 @@ def load_validated(path: str, template_module: nn.Module, convert: Optional[Call
                            f"{problems[:3]}...")
     return {k: v.to(device=device, dtype=param_dtype if v.is_floating_point() else v.dtype)
             for k, v in sd.items()}
+
+
+@dataclasses.dataclass
+class SamplingState:
+    """A guided trajectory between two steps.  `key_data` holds the draws'
+    key (`TorchDraws.key_data`: its seed as uint32 words), so a resume in a
+    new process needs this file and the models only; a resume under other
+    draws raises rather than continue a different trajectory."""
+
+    x: torch.Tensor  # (B, H, W, 3) x_t
+    step: int  # the next respaced step to execute (counts down; -1 when done)
+    eps_history: torch.Tensor  # (3, B, H, W, 3) the PLMS ring, zeros for DDIM
+    history_count: int
+    key_data: np.ndarray
+
+    def save(self, path: str) -> None:
+        np.savez(
+            path,
+            x=self.x.detach().cpu().numpy(),
+            step=self.step,
+            eps_history=self.eps_history.detach().cpu().numpy(),
+            history_count=self.history_count,
+            key_data=np.asarray(self.key_data, np.uint32),
+        )
+
+    @staticmethod
+    def load(path: str) -> "SamplingState":
+        """The state at `path`, its tensors on the CPU."""
+        with np.load(path) as z:
+            return SamplingState(
+                x=torch.from_numpy(z["x"]),
+                step=int(z["step"]),
+                eps_history=torch.from_numpy(z["eps_history"]),
+                history_count=int(z["history_count"]),
+                key_data=np.asarray(z["key_data"], np.uint32),
+            )

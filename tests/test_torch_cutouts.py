@@ -114,6 +114,22 @@ def test_affine_shear_matches():
         np.testing.assert_allclose(t[i], j, atol=1e-5)
 
 
+def test_affine_shear_is_well_conditioned_at_small_angles():
+    """float32 angles near 0 warp as in float64: atol 1e-5 on [0, 1]
+    images.  The shear's (cos - 1) / sin cancels there, so where two
+    devices' cos differ by an ulp their warps would differ; the port takes
+    it as -tan(theta / 2)."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0, 1, (4, 32, 32, 3))
+    theta = np.asarray([0.003, -0.0007, 0.02, -0.011])
+    ty = np.asarray([0.4, -1.3, 2.1, 0.0])
+    tx = np.asarray([-0.9, 0.6, -2.2, 1.5])
+    f32 = taug._affine_shear(*(_t(a.astype(np.float32)) for a in (img, theta, ty, tx)))
+    f64 = taug._affine_shear(*(_t(a) for a in (img, theta, ty, tx)))
+    np.testing.assert_allclose(f32.numpy(), f64.numpy(), atol=1e-5)
+
+
 def test_augment_batch_matches_with_jax_draws():
     """The full stack with the JAX package's draws: atol 1e-5 (f32 sums)."""
     torch.set_num_threads(1)

@@ -1,6 +1,6 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package: every
-module of the port, the checkpoint layer and the serving runtime among
-them, is imported in a fresh interpreter."""
+module of the port, the checkpoint layer, the serving runtime and the
+multi-process modules among them, is imported in a fresh interpreter."""
 
 import os
 import subprocess
@@ -15,7 +15,8 @@ names = [m.name for m in pkgutil.walk_packages(clip_diffusion_tpu_torch.__path__
                                                "clip_diffusion_tpu_torch.")]
 new = {"clip_diffusion_tpu_torch.runtime.bootstrap", "clip_diffusion_tpu_torch.runtime.registry",
        "clip_diffusion_tpu_torch.runtime.server", "clip_diffusion_tpu_torch.utils.checkpoint",
-       "clip_diffusion_tpu_torch.models.convert", "clip_diffusion_tpu_torch.models.ldm.convert"}
+       "clip_diffusion_tpu_torch.models.convert", "clip_diffusion_tpu_torch.models.ldm.convert",
+       "clip_diffusion_tpu_torch.parallel.dist", "clip_diffusion_tpu_torch.parallel.ensemble"}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
     importlib.import_module(name)
@@ -33,4 +34,4 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 56, proc.stdout
+    assert n_modules >= 58, proc.stdout
