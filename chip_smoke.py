@@ -60,9 +60,11 @@ Phases, each announced on its own line; any failure exits non-zero:
    UNet bit-identical afterwards, 400 for an unknown model_type, and
    /analyze_image on the first image; each request's wall seconds, the
    analyze latency over HTTP and mode B's launches per request;
-12. profile: two steps of each of the three guided paths timed, then run
-   under torch.profiler: device time by kernel class and by direction, the
-   device's idle share, and each tower's device time over the step's cuts;
+12. profile: two steps of the main path timed, then run under
+   torch.profiler: device time by kernel class and by direction, the
+   device's idle share, and each tower's device time over the step's cuts
+   (phase 22's profile_step gives each cutout phase's step cost on the
+   main path and the default request);
 13. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
     RRDBNet x4) on the card against the same stack on the CPU, same weights
     and draws: a 5-step CFG DDIM txt2img and a 6-step PLMS inpainting, each
@@ -100,13 +102,33 @@ Phases, each announced on its own line; any failure exits non-zero:
 20. resume: the main path's trajectory run as 5 steps with
     `return_state=True`, the `SamplingState` through an .npz file, then the
     other 5 with `draws=None`, against the straight 10-step run (max |diff|
-    at most 1e-3 on [-1, 1]).
+    at most 1e-3 on [-1, 1]);
+21. dispatch: (a) the main path's 10 steps phase-segmented
+    (`SamplerConfig.phase_segmented`) in chunks of at most 3 steps with
+    `chunk_times`: the chunks follow `compute_phase_segments` in order and
+    the final image is within 1e-5 of the padded run's under the same draws;
+    (b) a `deadline` already past raises `DeadlineExceeded` before any step
+    and chunk time; (c) the default latent stack at 256x256, 1 x 3 images,
+    10 CFG steps of DDIM (eta 0.5) and of PLMS, in chunks of 4
+    (`max_steps_per_dispatch`) equal to one dispatch bit for bit, with
+    chunk step counts 4, 4, 2;
+22. tools: `tools.profile_step`'s sections on the main path's zoo (the
+    250-step default schedule, K=2, repeats=2), its BREAKDOWN line printed;
+    `tools.build_banks --all` into a temporary directory, each bank within
+    1e-4 of data/banks with every name retrieving its own row and the names
+    files byte-equal; `tools.eval_clip_score --selftest`, and `--certify`
+    on phase 6's release-file root, which names as MISSING exactly the slots
+    phase 6 did not write and fails with exit code 1; `utils.profiling.
+    trace` around one segmented step, its Chrome trace holding the
+    `annotate` name.
 
 On every path the kernel launch counts are zeroed just before it runs and
 read just after: on the guided paths (the auto-modifier request, the
-score suite's samples, the server's requests, batch serving, the ensemble
-and the resumed trajectory included) mode B of the quantile kernel once per
-executed step (per rank), mode A never; on the latent paths neither mode.
+score suite's samples, the server's requests, batch serving, the ensemble,
+the resumed and the segmented trajectories, profile_step and the traced
+step included) mode B of the quantile kernel once per executed step (per
+rank), mode A never; on the latent paths (the chunked ones included) and
+under a past deadline neither mode.
 
 Then one JSON line {"kernels": [...]} (each kernel's launches on the main
 path, and on every path under "launches_by_path"), the nvidia-smi line again, and as
@@ -118,10 +140,12 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import ctypes
 import dataclasses
 import glob
+import io
 import json
 import os
 import base64
@@ -176,7 +200,12 @@ from clip_diffusion_tpu_torch.parallel.serving import (
     serve_latent_batch,
 )
 from clip_diffusion_tpu_torch.pipeline import guided as guided_mod
-from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws, guided_sample, guided_step
+from clip_diffusion_tpu_torch.pipeline.guided import (
+    TorchDraws,
+    compute_phase_segments,
+    guided_sample,
+    guided_step,
+)
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, img2img_start, latent_sample
 from clip_diffusion_tpu_torch.runtime.registry import UNetRegistry
 from clip_diffusion_tpu_torch.runtime.server import ClipDiffusionServer
@@ -188,6 +217,7 @@ from clip_diffusion_tpu_torch.sample import (
 from clip_diffusion_tpu_torch.text.prompt import ARTSTATION_SUFFIX, Prompt, load_modifier_bank
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.text.zh import tw_to_simplified
+from clip_diffusion_tpu_torch.tools import build_banks, eval_clip_score, profile_step
 from clip_diffusion_tpu_torch.tools.clip_score import provenance_summary, suite_sampler
 from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
 from clip_diffusion_tpu_torch.utils.image_io import (
@@ -196,6 +226,7 @@ from clip_diffusion_tpu_torch.utils.image_io import (
     load_mask,
     normalize_image_neg_one_to_one,
 )
+from clip_diffusion_tpu_torch.utils.profiling import annotate, trace
 from clip_diffusion_tpu_torch.utils.progress import get_task_state
 from clip_diffusion_tpu_torch.zoo import (
     ZooModels,
@@ -744,7 +775,7 @@ def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
         raise AssertionError(f"init-image path: terms not computed at steps {missing}")
     print("init-image path: LPIPS, MS-SSIM and the aesthetic heads of "
           + ", ".join(models.aesthetic) + " computed at each of the 10 steps", flush=True)
-    return dict(run, models=models, config=config, init_png=init_png, sampler=sampler)
+    return run
 
 
 def _read_names(kind: str) -> list:
@@ -1105,47 +1136,34 @@ def _kernel_class(name: str) -> str:
     return next((cls for frag, cls in _KERNEL_CLASSES if frag in low), "elementwise/other")
 
 
-def profile_steps(dev, label: str, models, config, n_steps: int, out_dir: str,
-                  sampler: SamplerConfig = SamplerConfig(steps=10), init_png=None) -> None:
-    """The first `n_steps` executed guided steps of `sampler`'s trajectory
-    (by default a 10-step DDIM one, whose first steps are the schedule phase
-    with the most cutouts; with `init_png`, from that init image with its
-    LPIPS and MS-SSIM terms), run three times from the same draws: a
-    warm-up, a timed run and a run under torch.profiler.  Prints the wall
-    time per step without the profiler, the device time per step, the
-    device's idle share, device time by kernel class and by direction
-    (kernels launched under the autograd engine are the backward, UNet
-    recompute included; the port's own kernels, launched through ctypes,
-    sit under no PyTorch op and count in neither) and the top kernels; then
-    each tower's forward and backward over the first step's cut count, in
-    chunks of `clip_cut_chunk`, run alone under the profiler, and its
-    device time's share of the step's.  The op table goes to
-    <out_dir>/profile_<label>.txt."""
+def profile_steps(dev, label: str, models, config, n_steps: int, out_dir: str) -> None:
+    """The first `n_steps` guided steps of a 10-step DDIM trajectory (the
+    schedule phase with the most cutouts), run three times from the same
+    draws: a warm-up, a timed run and a run under torch.profiler.  Prints
+    the wall time per step without the profiler, the device time per
+    step, the device's idle share, device time by kernel class and by
+    direction (kernels launched under the autograd engine are the
+    backward, UNet recompute included; the port's own kernels, launched
+    through ctypes, sit under no PyTorch op and count in neither) and the
+    top kernels; then each tower's forward and backward over the first
+    step's cut count, in chunks of `clip_cut_chunk`, run alone under the
+    profiler, and its device time's share of the step's.  The op table
+    goes to <out_dir>/profile_<label>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from clip_diffusion_tpu_torch.diffusion.sampling import init_history, q_sample, schedule_tables
-    from clip_diffusion_tpu_torch.pipeline.guided import PLMSHistory, guided_step, schedule_index
-    from clip_diffusion_tpu_torch.utils.image_io import load_image, normalize_image_neg_one_to_one
+    from clip_diffusion_tpu_torch.pipeline.guided import schedule_index
 
-    init = None
-    if init_png is not None:
-        init = torch.from_numpy(normalize_image_neg_one_to_one(
-            load_image(init_png, (config.width, config.height))))[None].to(dev)
-    pipe = build_pipeline(models, config, [(PROMPT, 1.0)], sampler,
-                          use_init_losses=init is not None)
+    pipe = build_pipeline(models, config, [(PROMPT, 1.0)], SamplerConfig(steps=10))
     tables = schedule_tables(pipe.schedule, dev)
-    top = pipe.schedule.num_steps - sampler.skip_timesteps - 1
+    top = pipe.schedule.num_steps - 1
     shape = (1, config.height, config.width, 3)
 
     def run():
         draws = TorchDraws(99, dev)
         x = draws.initial_noise(shape)
-        if init is not None:
-            x = q_sample(init.expand(shape), tables, top, x)
-        history = PLMSHistory(init_history(shape, dev)) if sampler.mode == "plms" else None
         for step in range(top, top - n_steps, -1):
-            x, _ = guided_step(pipe, tables, x, step, draws, init, history)
+            x, _ = guided_step(pipe, tables, x, step, draws)
         torch.cuda.synchronize()
 
     run()
@@ -1747,6 +1765,188 @@ def run_resume(dev, models: ZooModels, config: Config, steps: int) -> dict:
     return launches
 
 
+def _chunk_plan(segments, chunk: int) -> list:
+    """(caps, steps) of each dispatch chunk: each phase cut into chunks."""
+    return [(caps, min(chunk, len(steps) - lo)) for steps, caps in segments
+            for lo in range(0, len(steps), chunk)]
+
+
+def run_dispatch(dev, models: ZooModels, config: Config, latent_pipe, text_encode,
+                 steps: int) -> dict:
+    """Phase 21: (a) the main path's trajectory phase-segmented in chunks of
+    at most 3 steps with chunk_times, against the padded run under the same
+    draws (1e-5, 0 predicted), its chunks in the phases' order, mode B once
+    per step; (b) a deadline already past raises DeadlineExceeded before
+    any step; (c) the default latent stack, 256x256, 1 x 3 images, 10 CFG
+    steps of DDIM (eta 0.5) and of PLMS, in chunks of 4 against one
+    dispatch, bit for bit.  Returns the launch counts by path."""
+    chunk, latent_chunk = 3, 4
+    sampler = SamplerConfig(steps=steps, eta=0.8)
+    pipe_pad = build_pipeline(models, config, [(PROMPT, 1.0)], sampler)
+    pipe_seg = build_pipeline(models, config, [(PROMPT, 1.0)],
+                              dataclasses.replace(sampler, phase_segmented=True))
+    padded, _ = guided_sample(pipe_pad, TorchDraws(1234, dev))
+    times = []
+    _zero_launches()
+    t0 = time.perf_counter()
+    seg, frames = guided_sample(pipe_seg, TorchDraws(1234, dev), max_steps_per_dispatch=chunk,
+                                chunk_times=times)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dispatch segmented": _launches()}
+    plan = _chunk_plan(compute_phase_segments(pipe_seg, steps), chunk)
+    got = [(caps, n) for caps, n, _ in times]
+    err = float((seg - padded).abs().max())
+    if got != plan or sum(n for _, n in got) != steps or max(n for _, n in got) > chunk:
+        raise AssertionError(f"dispatch: chunks {got}, expected {plan}")
+    if not (torch.isfinite(frames).all() and err <= 1e-5):
+        raise AssertionError(f"dispatch: segmented vs padded max |diff| {err:.3e}")
+    if launches["dispatch segmented"] != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+        raise AssertionError(f"dispatch: quantile launches {launches['dispatch segmented']}")
+    print(f"dispatch (a): {steps} steps phase-segmented at {config.width}x{config.height} in "
+          f"{wall:.2f} s, chunks (caps, steps, s) "
+          + ", ".join(f"({c[0]},{c[1]}) {n} {t:.3f}" for c, n, t in times)
+          + f"; segmented vs padded max |diff| {err:.3e}; quantile kernel launches "
+          f"{launches['dispatch segmented']}", flush=True)
+
+    late = []
+    _zero_launches()
+    try:
+        guided_sample(pipe_seg, TorchDraws(1234, dev), chunk_times=late, deadline=time.time() - 1)
+    except guided_mod.DeadlineExceeded as e:
+        message = str(e)
+    else:
+        raise AssertionError("dispatch: a past deadline did not raise")
+    launches["dispatch deadline"] = _launches()
+    if late or any(launches["dispatch deadline"].values()):
+        raise AssertionError(f"dispatch deadline: chunk times {late}, launches "
+                             f"{launches['dispatch deadline']}")
+    print(f"dispatch (b): a past deadline raises DeadlineExceeded ({message!r}) with no chunk "
+          f"time; quantile kernel launches {launches['dispatch deadline']}", flush=True)
+
+    ctx_c, ctx_u = text_encode([PROMPT] * 3), text_encode([""] * 3)
+    _zero_launches()
+    for mode, eta in (("ddim", 0.5), ("plms", 0.0)):
+        kw = dict(batch_size=3, height=256, width=256, steps=steps, mode=mode, eta=eta)
+        one = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw)
+        chunk_times = []
+        chunked = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw,
+                                max_steps_per_dispatch=latent_chunk, chunk_times=chunk_times)
+        counts = [n for n, _ in chunk_times]
+        want = [min(latent_chunk, steps - lo) for lo in range(0, steps, latent_chunk)]
+        if not (torch.isfinite(one).all() and torch.equal(one, chunked)) or counts != want:
+            raise AssertionError(f"dispatch latent {mode}: chunks {counts}, max |diff| "
+                                 f"{float((one - chunked).abs().max()):.3e}")
+        print(f"dispatch (c) latent {mode}: {steps} CFG steps at 256x256, batch 3, in chunks "
+              f"(steps, s) " + ", ".join(f"{n} {t:.3f}" for n, t in chunk_times)
+              + " equal to one dispatch bit for bit", flush=True)
+    launches["dispatch latent"] = _check_no_launches("dispatch (c) latent")
+    return launches
+
+
+def _check_banks(out_dir: str) -> None:
+    """Each rebuilt bank within 1e-4 of the committed one, every name
+    retrieving its own row, the names files byte-equal."""
+    for path in sorted(glob.glob(os.path.join(BANKS, "*"))):
+        name = os.path.basename(path)
+        with open(path, "rb") as a, open(os.path.join(out_dir, name), "rb") as b:
+            if name.endswith(".txt") and a.read() != b.read():
+                raise AssertionError(f"build_banks: {name} differs from the committed one")
+        if not name.endswith(".npy"):
+            continue
+        ref, got = np.load(path), np.load(os.path.join(out_dir, name))
+        err = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+        own = int((np.argmax(got @ ref.T, axis=1) == np.arange(len(ref))).sum())
+        if not (got.dtype == np.float32 and err <= 1e-4 and own == len(ref)):
+            raise AssertionError(f"build_banks {name}: {got.dtype} {got.shape}, max |diff| "
+                                 f"{err:.3e}, {own}/{len(ref)} retrieve their own row")
+        print(f"build_banks {name}: {got.shape}, max |diff| to the committed bank {err:.3e}, "
+              f"{own}/{len(ref)} retrieve their own row", flush=True)
+
+
+def run_tools(dev, models: ZooModels, config: Config, default_models: ZooModels,
+              weights_root: str, k: int = 2, repeats: int = 2) -> dict:
+    """Phase 22: profile_step's sections on the main path's zoo (250-step
+    default schedule, K=2, repeats=2) with its BREAKDOWN line, and its
+    `phases` section on the default request's (768x512, four towers,
+    repeats=1) with a second BREAKDOWN line; build_banks
+    --all against data/banks; eval_clip_score --selftest, and --certify on
+    phase 6's release-file root, which must name exactly the slots phase 6
+    did not write as MISSING and fail with exit code 1; utils.profiling.
+    trace around one segmented step, its file holding the annotate names.
+    Returns the launch counts by path."""
+    launches = {}
+    pipe = build_pipeline(models, config, [(PROMPT, 1.0)],
+                          SamplerConfig(mode="ddim", steps=250, eta=0.8))
+    _zero_launches()
+    t0 = time.perf_counter()
+    breakdown = profile_step.run_sections(pipe, profile_step.SECTIONS, k, repeats, (4, 2))
+    launches["profile_step"] = _launches()
+    if launches["profile_step"]["histogram_quantile"] or not launches["profile_step"][
+            "histogram_abs_quantile"]:
+        raise AssertionError(f"profile_step: quantile launches {launches['profile_step']}")
+    print(f"profile_step: {len(breakdown)} entries in {time.perf_counter() - t0:.1f} s; quantile "
+          f"kernel launches {launches['profile_step']}", flush=True)
+    print("BREAKDOWN " + json.dumps(breakdown), flush=True)
+    default_pipe = build_pipeline(default_models, Config(), [(PROMPT, 1.0)],
+                                  SamplerConfig(mode="ddim", steps=250, eta=0.8))
+    _zero_launches()
+    default_breakdown = profile_step.run_sections(default_pipe, ["phases"], k, 1)
+    launches["profile_step default"] = _launches()
+    print("BREAKDOWN default request " + json.dumps(default_breakdown), flush=True)
+
+    on_cpu = ["--cpu"] if dev.type == "cpu" else []  # a CPU rehearsal
+    with tempfile.TemporaryDirectory(prefix="banks_") as out:
+        t0 = time.perf_counter()
+        build_banks.main(["--all", "--out", out, "--csv-dir",
+                          os.path.join(os.path.dirname(BANKS), "csv")] + on_cpu)
+        print(f"build_banks --all in {time.perf_counter() - t0:.1f} s", flush=True)
+        _check_banks(out)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        selftest_rc = eval_clip_score.main(["--selftest"] + on_cpu)
+        certify_rc = eval_clip_score.main(["--certify", "--checkpoint-root", weights_root]
+                                          + on_cpu)
+    selftest, report = (json.loads(line) for line in buf.getvalue().strip().splitlines()[-2:])
+    scores = selftest["selftest_scores"]
+    if selftest_rc != 0 or len(scores) != 2 or not all(np.isfinite(scores)):
+        raise AssertionError(f"eval_clip_score --selftest: rc {selftest_rc}, {selftest}")
+    written = {"guided_unet_512"} | {clip_checkpoint_name(n) for n in config.chosen_clip_models}
+    slots = report["checks"]["checkpoint_slots"]
+    missing = {k for k, v in slots.items() if v == "MISSING"}
+    if certify_rc != 1 or report["certify"] != "FAIL" or missing != set(slots) - written:
+        raise AssertionError(f"eval_clip_score --certify: rc {certify_rc}, {report}")
+    print(f"eval_clip_score --selftest: {scores}; --certify on the checkpoints phase's root: "
+          f"{report['certify']} (exit code {certify_rc}), present {sorted(set(slots) - missing)}, "
+          f"MISSING {sorted(missing)}", flush=True)
+
+    seg = build_pipeline(models, config, [(PROMPT, 1.0)],
+                         SamplerConfig(steps=10, eta=0.8, phase_segmented=True))
+    steps, caps = compute_phase_segments(seg, 10)[0]
+    tables = schedule_tables(seg.schedule, dev)
+    draws = TorchDraws(5, dev)
+    x = draws.initial_noise((1, config.height, config.width, 3))
+    with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
+        _zero_launches()
+        with trace(tmp) as path:
+            with annotate("segmented_guided_step"):
+                guided_step(seg, tables, x, int(steps[0]), draws, slot_caps=caps)
+            torch.cuda.synchronize()
+        launches["trace"] = _launches()
+        with open(path, encoding="utf-8") as f:
+            text = f.read()
+        size = os.path.getsize(path)
+    if "segmented_guided_step" not in text or launches["trace"] != {
+            "histogram_quantile": 0, "histogram_abs_quantile": 1}:
+        raise AssertionError(f"trace: annotate name found {'segmented_guided_step' in text}, "
+                             f"launches {launches['trace']}")
+    print(f"trace: one segmented step at caps {caps} written as a {size / 2**20:.1f} MiB Chrome "
+          f"trace holding its annotate name; quantile kernel launches {launches['trace']}",
+          flush=True)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -1785,8 +1985,9 @@ def main(argv=None) -> int:
     main_models = zoo_subset(zoo, PERCEPTORS)
 
     phase("checkpoints", t_start)
-    # release files of the main path's zoo, kept for the server phase (a
-    # TemporaryDirectory is removed at exit, also when a phase fails)
+    # release files of the main path's zoo, kept for the server and tools
+    # phases (a TemporaryDirectory is removed at exit, also when a phase
+    # fails)
     weights = tempfile.TemporaryDirectory(prefix="release_weights_")
     check_checkpoints(dev, main_models, main_config, weights.name)
 
@@ -1807,8 +2008,7 @@ def main(argv=None) -> int:
         os.path.join(args.out, "default"), steps=args.steps)["launches"]  # no config: Config()
 
     phase("init-image path", t_start)
-    init_run = run_init_path(zoo, os.path.join(args.out, "init"))
-    by_path["init-image path"] = init_run["launches"]
+    by_path["init-image path"] = run_init_path(zoo, os.path.join(args.out, "init"))["launches"]
 
     phase("text front end", t_start)
     by_path.update(run_text_front_end(dev, zoo, main_models, main_config, args.steps,
@@ -1817,13 +2017,11 @@ def main(argv=None) -> int:
     phase("server", t_start)
     by_path.update(run_server(main_models, main_config, weights.name, args.steps,
                               os.path.join(args.out, "server")))
-    weights.cleanup()
 
     phase("profile", t_start)
+    # the main path alone: phase 22's profile_step gives each cutout phase's
+    # step cost on the main path's and the default request's zoos
     profile_steps(dev, "main", main_models, main_config, 2, args.out)
-    profile_steps(dev, "default", default_models, default, 2, args.out)
-    profile_steps(dev, "init", init_run["models"], init_run["config"], 2, args.out,
-                  init_run["sampler"], init_run["init_png"])
 
     phase("latent zoo", t_start)
     latent_pipe, text_encode, esrgan = build_latent_zoo(dev)
@@ -1854,6 +2052,14 @@ def main(argv=None) -> int:
 
     phase("resume", t_start)
     by_path["resume"] = run_resume(dev, main_models, main_config, args.steps)
+
+    phase("dispatch", t_start)
+    by_path.update(run_dispatch(dev, main_models, main_config, latent_pipe, text_encode,
+                                args.steps))
+
+    phase("tools", t_start)
+    by_path.update(run_tools(dev, main_models, main_config, default_models, weights.name))
+    weights.cleanup()
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     for rec in records:

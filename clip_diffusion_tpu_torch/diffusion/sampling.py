@@ -36,6 +36,10 @@ class SamplerConfig:
     # (ops/quantile.histogram_abs_quantile, a CUDA kernel on the GPU);
     # "sort": exact torch.quantile
     thresholding_method: str = "histogram"
+    # guided_sample walks the schedule's cutout phases, each step's cutouts
+    # at its phase's exact counts, in chunks of max_steps_per_dispatch steps
+    # (deadline and chunk_times are read between chunks)
+    phase_segmented: bool = False
 
 
 def schedule_tables(sched: NoiseSchedule, device=None,

@@ -14,6 +14,8 @@ to the order of the gradient's sum.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch.distributed as dist
 
 from clip_diffusion_tpu_torch.parallel.dist import rank_and_size
@@ -24,10 +26,12 @@ from clip_diffusion_tpu_torch.pipeline.guided import (
 )
 
 
-def build_ensemble_guided_step(pipe: GuidedPipeline, group=None):
+def build_ensemble_guided_step(pipe: GuidedPipeline, group=None,
+                               slot_caps: Optional[Tuple[int, int]] = None):
     """-> step_fn(tables, x, step, draws, init_image=None, history=None) ->
     (x_next, pred_x0), `guided_step`'s signature, with perceptor `rank`
-    of `pipe` on rank `rank` of `group`.  Needs one perceptor per rank."""
+    of `pipe` on rank `rank` of `group`.  Needs one perceptor per rank.
+    `slot_caps` sizes each rank's cutout layout, as `guided_step`'s does."""
     rank, size = rank_and_size(group)
     if size != len(pipe.perceptors):
         raise ValueError(
@@ -37,7 +41,8 @@ def build_ensemble_guided_step(pipe: GuidedPipeline, group=None):
     def step_fn(tables, x, step: int, draws, init_image=None, history=None):
         grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image,
                                               perceptor_subset=(rank,),
-                                              include_image_terms=rank == 0)
+                                              include_image_terms=rank == 0,
+                                              slot_caps=slot_caps)
         if dist.is_initialized():
             dist.all_reduce(grad, group=group)
         # pred_x0_raw comes from the replicated UNet forward: the same on

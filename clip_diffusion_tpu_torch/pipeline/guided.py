@@ -36,12 +36,23 @@ package's key chain.
 `guided_sample` resumes a trajectory from a `utils.checkpoint.
 SamplingState` (`resume_state`, `return_state`, `stop_after`): keyed draws
 make the resumed steps draw what the uninterrupted run drew.
+
+The dispatch layer: with `SamplerConfig.phase_segmented` the trajectory
+walks the cutout schedule's phases (`compute_phase_segments`), each step's
+cutout spec sized to its phase's counts (`slot_caps`), in chunks of at most
+`max_steps_per_dispatch` steps.  Between chunks, and only there, a host
+`deadline` is checked (`DeadlineExceeded`) and, when asked for, the device
+is synchronized and each chunk's (caps, steps, seconds) recorded in
+`chunk_times`.  Under `TorchDraws` the segmented trajectory equals the
+padded one bit for bit: the draws of an active slot do not depend on the
+caps.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -108,10 +119,19 @@ class GuidedPipeline:
     lpips_fn: Optional[Callable] = None  # (x, y) NHWC in [-1, 1] -> (B,)
     use_init_losses: bool = False  # LPIPS/MS-SSIM terms against the init image
 
-    def cutout_spec(self, resolution: int) -> CutoutSpec:
+    def cutout_spec(self, resolution: int,
+                    slot_caps: Optional[Tuple[int, int]] = None) -> CutoutSpec:
+        """The padded slot layout: the schedule maxima, or `slot_caps`
+        (max_overview, max_inner) for a phase-segmented step."""
         cs = self.config.cutout_schedules
-        return CutoutSpec(cut_size=resolution, max_overview=cs.max_overview_cuts,
-                          max_inner=cs.max_inner_cuts)
+        max_ov, max_in = slot_caps or (cs.max_overview_cuts, cs.max_inner_cuts)
+        return CutoutSpec(cut_size=resolution, max_overview=max_ov, max_inner=max_in)
+
+
+class DeadlineExceeded(Exception):
+    """Raised by `guided_sample` when its host `deadline` (a `time.time()`
+    value) has passed between dispatch chunks; `chunk_times` keeps the
+    chunks that completed.  Checked only between chunks."""
 
 
 # the first word of each draw's key: what the draw is for
@@ -256,7 +276,8 @@ def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
 def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
                       init_image: Optional[torch.Tensor] = None,
                       perceptor_subset: Optional[Sequence[int]] = None,
-                      include_image_terms: bool = True):
+                      include_image_terms: bool = True,
+                      slot_caps: Optional[Tuple[int, int]] = None):
     """d(loss)/dx at respaced step `step` -> (grad, pred_x0), both (B,H,W,3).
     `init_image` (1, H, W, 3) in [-1, 1] is the target of the LPIPS and
     MS-SSIM terms when `pipe.use_init_losses` is on.
@@ -264,7 +285,9 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
     `perceptor_subset` limits the CLIP terms to these perceptors, each with
     cutouts of its own keyed by its global index; `include_image_terms=
     False` drops the whole-image terms (TV, range, LPIPS, MS-SSIM).  The
-    ensemble (`parallel/ensemble.py`) sums such gradients over ranks."""
+    ensemble (`parallel/ensemble.py`) sums such gradients over ranks.
+    `slot_caps` (max_overview, max_inner) sizes the cutout layout, as the
+    phase-segmented runner does; the step's scheduled counts must fit."""
     cfg = pipe.config
     b = x.shape[0]
     with torch.enable_grad():
@@ -297,9 +320,12 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
             idx = schedule_index(pipe.schedule, step)
             ov_t, in_t, power_t, gray_t = cfg.cutout_schedules.as_arrays()
             n_ov, n_in = int(ov_t[idx]), int(in_t[idx])
+            if slot_caps is not None and (n_ov > slot_caps[0] or n_in > slot_caps[1]):
+                raise ValueError(f"step {step} schedules ({n_ov}, {n_in}) cutouts, more than "
+                                 f"slot_caps {tuple(slot_caps)}")
             gdtype = cfg.guidance_torch_dtype
             for key, resolution, members in perceptor_groups(pipe, perceptor_subset):
-                spec = pipe.cutout_spec(resolution)
+                spec = pipe.cutout_spec(resolution, slot_caps)
                 cd = draws.cutouts(step, key, b, cfg.num_cutout_batches, spec, n_ov, n_in)
                 cuts, w = make_cutouts_batch(
                     denoised.to(gdtype), cd, n_ov, n_in, float(power_t[idx]),
@@ -375,10 +401,12 @@ def step_from_gradient(pipe: GuidedPipeline, tables, x, step: int, draws, grad,
 
 def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws,
                 init_image: Optional[torch.Tensor] = None,
-                history: Optional[PLMSHistory] = None):
+                history: Optional[PLMSHistory] = None,
+                slot_caps: Optional[Tuple[int, int]] = None):
     """One full guided step -> (x_next, pred_x0_final); PLMS needs
-    `history`, which it advances."""
-    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image)
+    `history`, which it advances.  `slot_caps`: as `guidance_gradient`."""
+    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image,
+                                          slot_caps=slot_caps)
     return step_from_gradient(pipe, tables, x, step, draws, grad, pred_x0_raw, history)
 
 
@@ -391,6 +419,46 @@ def frame_table(n_steps: int, num_frames: int):
     return table, len(frame_at)
 
 
+def compute_phase_segments(pipe: GuidedPipeline, n_steps: int):
+    """Host-side: split the descending step sequence into runs with constant
+    scheduled cutout counts -> [(steps int32 array, (n_ov, n_in)), ...] in
+    execution order.  Each step's counts are read at the index its guidance
+    reads (`schedule_index`, the float32 timestep).  The JAX package floors
+    the float64 timestep here; the two floors differ at some step counts
+    (14 and 44 among them), never at 10, 50, 200 or 250."""
+    cs = pipe.config.cutout_schedules
+    ov = np.asarray(cs.num_overview_cuts, np.int64)
+    inn = np.asarray(cs.num_inner_cuts, np.int64)
+    segments = []
+    for step in range(n_steps - 1, -1, -1):
+        idx = schedule_index(pipe.schedule, step)
+        caps = (int(ov[idx]), int(inn[idx]))
+        if segments and segments[-1][1] == caps:
+            segments[-1][0].append(step)
+        else:
+            segments.append(([step], caps))
+    return [(np.asarray(s, np.int32), caps) for s, caps in segments]
+
+
+def _dispatch_chunks(pipe: GuidedPipeline, n_steps: int, start_pos: int, end_pos: int,
+                     chunk_size: int):
+    """(slot caps, positions) per dispatch chunk of positions [start_pos,
+    end_pos): the phase segments' positions cut into chunks of at most
+    `chunk_size`, with caps None and one segment for the padded loop."""
+    if chunk_size < 1:
+        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {chunk_size}")
+    if pipe.sampler.phase_segmented:
+        segments = [(len(steps), caps) for steps, caps in compute_phase_segments(pipe, n_steps)]
+    else:
+        segments = [(n_steps, None)]
+    offset = 0
+    for length, caps in segments:
+        positions = range(max(offset, start_pos), min(offset + length, end_pos))
+        offset += length
+        for lo in range(0, len(positions), chunk_size):
+            yield caps, positions[lo:lo + chunk_size]
+
+
 def guided_sample(
     pipe: GuidedPipeline,
     draws,
@@ -399,9 +467,12 @@ def guided_sample(
     num_frames: int = 6,
     progress_callback: Optional[Callable] = None,
     progress_every: int = 5,
+    max_steps_per_dispatch: int = 50,
     resume_state: Optional[SamplingState] = None,
     return_state: bool = False,
     stop_after: Optional[int] = None,
+    chunk_times: Optional[list] = None,
+    deadline: Optional[float] = None,
 ):
     """Run the full guided trajectory -> (final_images, frames): the final
     pred_x0 in [-1, 1] NHWC and `num_frames` evenly spaced pred_x0 frames
@@ -414,8 +485,20 @@ def guided_sample(
     frames before that position stay zero); with `draws=None` the draws
     are rebuilt from its key on `pipe.device`, and draws under another key
     raise.  `stop_after` runs at most that many steps; `return_state=True`
-    also returns the `SamplingState` after the last executed step."""
+    also returns the `SamplingState` after the last executed step.
+
+    Phase-segmented only (`pipe.sampler.phase_segmented`): the steps run in
+    chunks of at most `max_steps_per_dispatch` within each phase.
+    `chunk_times`, a list, receives `(slot_caps, n_steps, seconds)` per
+    chunk, the device synchronized after each; `deadline`, a `time.time()`
+    value, raises `DeadlineExceeded` when it has passed before a chunk.
+    `deadline` without `phase_segmented` raises ValueError; `chunk_times`
+    without it is ignored."""
     cfg, sampler = pipe.config, pipe.sampler
+    if not sampler.phase_segmented:
+        if deadline is not None:
+            raise ValueError("deadline requires phase_segmented sampling")
+        chunk_times = None
     shape = (batch_size, cfg.height, cfg.width, 3)
     if resume_state is not None:
         saved = np.asarray(resume_state.key_data, np.uint32)
@@ -449,12 +532,22 @@ def guided_sample(
         end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
         plms = history if sampler.mode == "plms" else None
         frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
-        for pos in range(start_pos, end_pos):
-            x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image, plms)
-            if table[pos] >= 0:
-                frames[table[pos]] = pred_x0
-            if progress_callback is not None and pos % progress_every == 0:
-                progress_callback(pos, pred_x0)
+        for caps, positions in _dispatch_chunks(pipe, n_steps, start_pos, end_pos,
+                                                max_steps_per_dispatch):
+            if deadline is not None and time.time() > deadline:
+                raise DeadlineExceeded(f"bench deadline passed before chunk at caps={caps}")
+            t0 = time.perf_counter()
+            for pos in positions:
+                x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image, plms,
+                                         caps)
+                if table[pos] >= 0:
+                    frames[table[pos]] = pred_x0
+                if progress_callback is not None and pos % progress_every == 0:
+                    progress_callback(pos, pred_x0)
+            if chunk_times is not None:
+                if pipe.device.type == "cuda":
+                    torch.cuda.synchronize(pipe.device)
+                chunk_times.append((caps, len(positions), time.perf_counter() - t0))
     if return_state:
         state = SamplingState(x=x, step=start - end_pos, eps_history=history.eps,
                               history_count=history.count, key_data=draws.key_data())

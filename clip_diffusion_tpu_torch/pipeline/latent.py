@@ -27,6 +27,7 @@ chain.  Nothing here takes a gradient: the public functions run under
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -109,12 +110,20 @@ def latent_sample(
     order: int = 2,
     x0_latent=None,
     mask=None,
+    max_steps_per_dispatch: Optional[int] = None,
+    chunk_times: Optional[list] = None,
 ):
     """Run the CFG latent diffusion loop -> final latents (B, h, w, C)
     float32.  `context_cond`/`context_uncond`: (B, 77, D) text
     conditioning; CFG is off when `context_uncond` is None or
     `guidance_scale` <= 0 (one forward per step).  `x0_latent` (B, h, w, C)
-    with `mask` (B, h, w, 1) inpaints."""
+    with `mask` (B, h, w, 1) inpaints.
+
+    `max_steps_per_dispatch`, when below `steps`, runs the loop in chunks of
+    at most that many steps (the PLMS history crosses chunks, the result is
+    the one-dispatch result bit for bit); `chunk_times`, a list, then
+    receives `(n_steps, seconds)` per chunk, the device synchronized after
+    each."""
     if mode not in ("ddim", "plms"):
         raise ValueError(f"unknown sample mode {mode!r}")
     if mode == "plms":
@@ -132,7 +141,12 @@ def latent_sample(
 
     x = draws.initial_noise(shape).to(device=device, dtype=torch.float32)
     hist, count = init_history(shape, device), 0
-    for i in range(steps - 1, -1, -1):
+    chunked = max_steps_per_dispatch is not None and max_steps_per_dispatch < steps
+    if chunked and max_steps_per_dispatch < 1:
+        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {max_steps_per_dispatch}")
+    chunk = max_steps_per_dispatch if chunked else steps
+    t0 = time.perf_counter()
+    for n, i in enumerate(range(steps - 1, -1, -1)):
         a, a_prev = tables["alphas"][i], tables["alphas_prev"][i]
         sqrt_1ma, sigma = tables["sqrt_one_minus_alphas"][i], tables["sigmas"][i]
         if inpaint:
@@ -151,6 +165,11 @@ def latent_sample(
         x = torch.sqrt(a_prev) * pred_x0 + dir_xt
         if eta > 0:
             x = x + sigma * draws.step_noise(i, shape).to(device)
+        if chunked and chunk_times is not None and ((n + 1) % chunk == 0 or i == 0):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            chunk_times.append(((n % chunk) + 1, time.perf_counter() - t0))
+            t0 = time.perf_counter()
     return x
 
 

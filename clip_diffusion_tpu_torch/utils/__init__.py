@@ -1,0 +1,1 @@
+from clip_diffusion_tpu_torch.utils.profiling import clear_device_cache  # noqa: F401

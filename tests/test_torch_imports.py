@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import neither JAX nor the JAX package: every
-module of the port, the checkpoint layer, the serving runtime and the
-multi-process modules among them, is imported in a fresh interpreter."""
+module of the port, the checkpoint layer, the serving runtime, the
+multi-process modules, the profiling hooks and the tools among them, is
+imported in a fresh interpreter."""
 
 import os
 import subprocess
@@ -16,7 +17,11 @@ names = [m.name for m in pkgutil.walk_packages(clip_diffusion_tpu_torch.__path__
 new = {"clip_diffusion_tpu_torch.runtime.bootstrap", "clip_diffusion_tpu_torch.runtime.registry",
        "clip_diffusion_tpu_torch.runtime.server", "clip_diffusion_tpu_torch.utils.checkpoint",
        "clip_diffusion_tpu_torch.models.convert", "clip_diffusion_tpu_torch.models.ldm.convert",
-       "clip_diffusion_tpu_torch.parallel.dist", "clip_diffusion_tpu_torch.parallel.ensemble"}
+       "clip_diffusion_tpu_torch.parallel.dist", "clip_diffusion_tpu_torch.parallel.ensemble",
+       "clip_diffusion_tpu_torch.utils.profiling", "clip_diffusion_tpu_torch.tools.profile_step",
+       "clip_diffusion_tpu_torch.tools.eval_clip_score",
+       "clip_diffusion_tpu_torch.tools.build_banks",
+       "clip_diffusion_tpu_torch.tools.fetch_and_convert"}
 assert new <= set(names), sorted(new - set(names))
 for name in names:
     importlib.import_module(name)
@@ -34,4 +39,4 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 58, proc.stdout
+    assert n_modules >= 63, proc.stdout
