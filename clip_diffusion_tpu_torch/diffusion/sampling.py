@@ -36,9 +36,9 @@ class SamplerConfig:
     # (ops/quantile.histogram_abs_quantile, a CUDA kernel on the GPU);
     # "sort": exact torch.quantile
     thresholding_method: str = "histogram"
-    # guided_sample walks the schedule's cutout phases, each step's cutouts
-    # at its phase's exact counts, in chunks of max_steps_per_dispatch steps
-    # (deadline and chunk_times are read between chunks)
+    # guided_sample walks the schedule's cutout phases in chunks of
+    # max_steps_per_dispatch steps, reading deadline and chunk_times between
+    # them; the same result as the padded loop (pipeline/guided.py)
     phase_segmented: bool = False
 
 

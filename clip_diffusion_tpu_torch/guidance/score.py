@@ -38,19 +38,30 @@ PROMPT_SUITE: Tuple[str, ...] = (
 
 
 @torch.no_grad()
+def image_text_embeddings(embed_image: Callable, embed_text: Callable, image01, prompt: str,
+                          resolution: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The L2-normalized float32 CLIP embeddings (D,) of one [0, 1] HWC image
+    (array or tensor; resized on its shorter side, center-cropped to
+    `resolution`, CLIP-normalized) and of `prompt`: `embed_image` maps
+    (1, S, S, 3) -> (1, D) and `embed_text` token ids (1, 77) -> (1, D),
+    both on `device`."""
+    img = torch.as_tensor(image01, dtype=torch.float32, device=device)
+    square = resize_center_crop(img, resolution)
+    ie = l2_normalize(embed_image(clip_normalize(square[None])).float())[0]
+    toks = torch.from_numpy(tokenize([prompt])).to(device=device, dtype=torch.long)
+    return ie, l2_normalize(embed_text(toks).float())[0]
+
+
 def clip_scores(clips: Dict[str, CLIPModel], image01, prompt: str) -> Dict[str, Dict[str, float]]:
     """Per-tower scores of one [0, 1] HWC image (array or tensor) against
     `prompt`, each tower on its own device: {"cosine": {name: v, ...,
     "mean": v}, "spherical": {name: v, ..., "mean": v}}."""
     cos: Dict[str, float] = {}
     sph: Dict[str, float] = {}
-    toks = torch.from_numpy(tokenize([prompt])).long()
     for name, model in clips.items():
-        device = next(model.parameters()).device
-        img = torch.as_tensor(image01, dtype=torch.float32, device=device)
-        square = resize_center_crop(img, model.cfg.image_resolution)
-        ie = l2_normalize(model.encode_image(clip_normalize(square[None])))[0]
-        te = l2_normalize(model.encode_text(toks.to(device)))[0]
+        ie, te = image_text_embeddings(model.encode_image, model.encode_text, image01, prompt,
+                                       model.cfg.image_resolution,
+                                       next(model.parameters()).device)
         cos[name] = round(float(torch.clamp(torch.dot(ie, te), -1.0, 1.0)), 4)
         chord = float(torch.linalg.vector_norm(ie - te))
         sph[name] = round((2.0 * math.asin(min(1.0, chord / 2.0))) ** 2, 4)

@@ -31,7 +31,7 @@ def build_ensemble_guided_step(pipe: GuidedPipeline, group=None,
     """-> step_fn(tables, x, step, draws, init_image=None, history=None) ->
     (x_next, pred_x0), `guided_step`'s signature, with perceptor `rank`
     of `pipe` on rank `rank` of `group`.  Needs one perceptor per rank.
-    `slot_caps` sizes each rank's cutout layout, as `guided_step`'s does."""
+    `slot_caps`: as `guided_step`'s, the slot layout handed to the draws."""
     rank, size = rank_and_size(group)
     if size != len(pipe.perceptors):
         raise ValueError(

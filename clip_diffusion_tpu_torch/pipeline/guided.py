@@ -37,15 +37,19 @@ package's key chain.
 SamplingState` (`resume_state`, `return_state`, `stop_after`): keyed draws
 make the resumed steps draw what the uninterrupted run drew.
 
-The dispatch layer: with `SamplerConfig.phase_segmented` the trajectory
-walks the cutout schedule's phases (`compute_phase_segments`), each step's
-cutout spec sized to its phase's counts (`slot_caps`), in chunks of at most
-`max_steps_per_dispatch` steps.  Between chunks, and only there, a host
+The dispatch layer is kept for parity with the JAX package, which needs
+it for its static padded slot layouts and per-dispatch limits.  With
+`SamplerConfig.phase_segmented` the trajectory walks the cutout
+schedule's phases (`compute_phase_segments`) in chunks of at most
+`max_steps_per_dispatch` steps; between chunks, and only there, a host
 `deadline` is checked (`DeadlineExceeded`) and, when asked for, the device
 is synchronized and each chunk's (caps, steps, seconds) recorded in
-`chunk_times`.  Under `TorchDraws` the segmented trajectory equals the
-padded one bit for bit: the draws of an active slot do not depend on the
-caps.
+`chunk_times`.  The port runs every step eagerly and evaluates only the
+active cutout slots, so none of this changes what it computes: under
+`TorchDraws` the segmented trajectory equals the padded one bit for bit.
+The caps reach one thing, the slot layout `cutout_spec(resolution,
+slot_caps)` handed to `draws.cutouts`, which `TorchDraws` ignores and a
+replay of the JAX package's draws (whose keys follow that layout) reads.
 """
 
 from __future__ import annotations
@@ -121,8 +125,9 @@ class GuidedPipeline:
 
     def cutout_spec(self, resolution: int,
                     slot_caps: Optional[Tuple[int, int]] = None) -> CutoutSpec:
-        """The padded slot layout: the schedule maxima, or `slot_caps`
-        (max_overview, max_inner) for a phase-segmented step."""
+        """The padded slot layout handed to `draws.cutouts`: the schedule
+        maxima, or `slot_caps` (max_overview, max_inner) for a
+        phase-segmented step (module docstring)."""
         cs = self.config.cutout_schedules
         max_ov, max_in = slot_caps or (cs.max_overview_cuts, cs.max_inner_cuts)
         return CutoutSpec(cut_size=resolution, max_overview=max_ov, max_inner=max_in)
@@ -286,8 +291,9 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
     cutouts of its own keyed by its global index; `include_image_terms=
     False` drops the whole-image terms (TV, range, LPIPS, MS-SSIM).  The
     ensemble (`parallel/ensemble.py`) sums such gradients over ranks.
-    `slot_caps` (max_overview, max_inner) sizes the cutout layout, as the
-    phase-segmented runner does; the step's scheduled counts must fit."""
+    `slot_caps` (max_overview, max_inner) sizes the slot layout handed to
+    `draws.cutouts`, as the phase-segmented runner does, and changes
+    nothing else; the step's scheduled counts must fit."""
     cfg = pipe.config
     b = x.shape[0]
     with torch.enable_grad():
@@ -440,21 +446,16 @@ def compute_phase_segments(pipe: GuidedPipeline, n_steps: int):
     return [(np.asarray(s, np.int32), caps) for s, caps in segments]
 
 
-def _dispatch_chunks(pipe: GuidedPipeline, n_steps: int, start_pos: int, end_pos: int,
-                     chunk_size: int):
-    """(slot caps, positions) per dispatch chunk of positions [start_pos,
-    end_pos): the phase segments' positions cut into chunks of at most
-    `chunk_size`, with caps None and one segment for the padded loop."""
+def _phase_chunks(pipe: GuidedPipeline, n_steps: int, start_pos: int, end_pos: int,
+                  chunk_size: int):
+    """(slot caps, positions) per chunk of positions [start_pos, end_pos):
+    each phase segment's positions cut into chunks of at most `chunk_size`."""
     if chunk_size < 1:
         raise ValueError(f"max_steps_per_dispatch must be at least 1, got {chunk_size}")
-    if pipe.sampler.phase_segmented:
-        segments = [(len(steps), caps) for steps, caps in compute_phase_segments(pipe, n_steps)]
-    else:
-        segments = [(n_steps, None)]
     offset = 0
-    for length, caps in segments:
-        positions = range(max(offset, start_pos), min(offset + length, end_pos))
-        offset += length
+    for steps, caps in compute_phase_segments(pipe, n_steps):
+        positions = range(max(offset, start_pos), min(offset + len(steps), end_pos))
+        offset += len(steps)
         for lo in range(0, len(positions), chunk_size):
             yield caps, positions[lo:lo + chunk_size]
 
@@ -487,13 +488,15 @@ def guided_sample(
     raise.  `stop_after` runs at most that many steps; `return_state=True`
     also returns the `SamplingState` after the last executed step.
 
-    Phase-segmented only (`pipe.sampler.phase_segmented`): the steps run in
-    chunks of at most `max_steps_per_dispatch` within each phase.
-    `chunk_times`, a list, receives `(slot_caps, n_steps, seconds)` per
-    chunk, the device synchronized after each; `deadline`, a `time.time()`
-    value, raises `DeadlineExceeded` when it has passed before a chunk.
-    `deadline` without `phase_segmented` raises ValueError; `chunk_times`
-    without it is ignored."""
+    Phase-segmented only (`pipe.sampler.phase_segmented`), as in the JAX
+    package: the steps run in chunks of at most `max_steps_per_dispatch`
+    within each phase (the module docstring says why the result does not
+    change); `chunk_times`, a list, receives `(slot_caps, n_steps,
+    seconds)` per chunk, the device synchronized after each; `deadline`, a
+    `time.time()` value, raises `DeadlineExceeded` when it has passed
+    before a chunk.  The padded loop is one chunk: `deadline` raises
+    ValueError there, and `chunk_times` and `max_steps_per_dispatch` are
+    ignored."""
     cfg, sampler = pipe.config, pipe.sampler
     if not sampler.phase_segmented:
         if deadline is not None:
@@ -532,8 +535,9 @@ def guided_sample(
         end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
         plms = history if sampler.mode == "plms" else None
         frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
-        for caps, positions in _dispatch_chunks(pipe, n_steps, start_pos, end_pos,
-                                                max_steps_per_dispatch):
+        chunks = (_phase_chunks(pipe, n_steps, start_pos, end_pos, max_steps_per_dispatch)
+                  if sampler.phase_segmented else [(None, range(start_pos, end_pos))])
+        for caps, positions in chunks:
             if deadline is not None and time.time() > deadline:
                 raise DeadlineExceeded(f"bench deadline passed before chunk at caps={caps}")
             t0 = time.perf_counter()

@@ -119,11 +119,12 @@ def latent_sample(
     `guidance_scale` <= 0 (one forward per step).  `x0_latent` (B, h, w, C)
     with `mask` (B, h, w, 1) inpaints.
 
-    `max_steps_per_dispatch`, when below `steps`, runs the loop in chunks of
-    at most that many steps (the PLMS history crosses chunks, the result is
-    the one-dispatch result bit for bit); `chunk_times`, a list, then
-    receives `(n_steps, seconds)` per chunk, the device synchronized after
-    each."""
+    `max_steps_per_dispatch` and `chunk_times` are kept for parity with the
+    JAX package, where a chunk is one compiled dispatch.  The port runs
+    every step eagerly, so chunks change nothing it computes: when
+    `max_steps_per_dispatch` is below `steps`, `chunk_times`, a list,
+    receives `(n_steps, seconds)` per chunk of at most that many steps, the
+    device synchronized after each."""
     if mode not in ("ddim", "plms"):
         raise ValueError(f"unknown sample mode {mode!r}")
     if mode == "plms":
@@ -141,10 +142,10 @@ def latent_sample(
 
     x = draws.initial_noise(shape).to(device=device, dtype=torch.float32)
     hist, count = init_history(shape, device), 0
-    chunked = max_steps_per_dispatch is not None and max_steps_per_dispatch < steps
-    if chunked and max_steps_per_dispatch < 1:
-        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {max_steps_per_dispatch}")
-    chunk = max_steps_per_dispatch if chunked else steps
+    chunk = steps if max_steps_per_dispatch is None else max_steps_per_dispatch
+    if chunk < 1:
+        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {chunk}")
+    timed = chunk_times is not None and chunk < steps
     t0 = time.perf_counter()
     for n, i in enumerate(range(steps - 1, -1, -1)):
         a, a_prev = tables["alphas"][i], tables["alphas_prev"][i]
@@ -165,7 +166,7 @@ def latent_sample(
         x = torch.sqrt(a_prev) * pred_x0 + dir_xt
         if eta > 0:
             x = x + sigma * draws.step_noise(i, shape).to(device)
-        if chunked and chunk_times is not None and ((n + 1) % chunk == 0 or i == 0):
+        if timed and ((n + 1) % chunk == 0 or i == 0):
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             chunk_times.append(((n % chunk) + 1, time.perf_counter() - t0))

@@ -39,10 +39,7 @@ from typing import Callable, List, Sequence
 import numpy as np
 import torch
 
-from clip_diffusion_tpu_torch.guidance.losses import l2_normalize
-from clip_diffusion_tpu_torch.models.clip.model import clip_normalize
-from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
-from clip_diffusion_tpu_torch.ops.resize import resize_center_crop
+from clip_diffusion_tpu_torch.guidance.score import image_text_embeddings
 from clip_diffusion_tpu_torch.tools.clip_score import read_image01
 from clip_diffusion_tpu_torch.utils.device import resolve_device
 
@@ -81,22 +78,14 @@ CERTIFY_DATA_ASSETS = {
 OPTIONAL_ASSETS = {os.path.join("opencc", "tw2sp_phrases.tsv")}
 
 
-@torch.no_grad()
 def clip_score(embed_image: Callable, embed_text: Callable, images01: Sequence,
-               prompts: Sequence[str], resolution: int = 224, device=None) -> List[float]:
-    """Cosine similarity of each (image, prompt) pair: `embed_image`
-    (CLIP-normalized (1, S, S, 3) -> (1, D)) and `embed_text` (token ids
-    (N, 77) -> (N, D)) on `device`; images HWC in [0, 1]."""
-    device = torch.device(device or "cpu")
-    toks = torch.from_numpy(tokenize(list(prompts))).to(device=device, dtype=torch.long)
-    text_emb = l2_normalize(embed_text(toks).float())
-    scores = []
-    for img, temb in zip(images01, text_emb):
-        square = resize_center_crop(torch.as_tensor(np.asarray(img), dtype=torch.float32,
-                                                     device=device), resolution)
-        iemb = l2_normalize(embed_image(clip_normalize(square[None])).float())[0]
-        scores.append(float(iemb @ temb))
-    return scores
+               prompts: Sequence[str], resolution: int = 224, *, device) -> List[float]:
+    """Cosine similarity of each (image, prompt) pair, images HWC in [0, 1]:
+    `guidance.score.image_text_embeddings` through `embed_image` and
+    `embed_text` on `device`."""
+    return [float(torch.dot(*image_text_embeddings(embed_image, embed_text, img, prompt,
+                                                    resolution, device)))
+            for img, prompt in zip(images01, prompts)]
 
 
 def _image_paths(pattern: str) -> List[str]:
@@ -110,7 +99,7 @@ def _score_images(paths: Sequence[str], prompts: Sequence[str], clip_name: str,
 
     model = build_clip(clip_name, device=device)
     return clip_score(model.encode_image, model.encode_text, [read_image01(p) for p in paths],
-                      prompts[: len(paths)], model.cfg.image_resolution, device)
+                      prompts[: len(paths)], model.cfg.image_resolution, device=device)
 
 
 def _finite(out: torch.Tensor) -> str:
@@ -213,7 +202,7 @@ def selftest(device) -> List[float]:
     model = model.to(device).requires_grad_(False)
     imgs = [np.random.default_rng(i).uniform(0, 1, (64, 64, 3)) for i in range(2)]
     return clip_score(model.encode_image, model.encode_text, imgs, PROMPT_SUITE[:2],
-                      cfg.image_resolution, device)
+                      cfg.image_resolution, device=device)
 
 
 def main(argv=None) -> int:

@@ -1,16 +1,14 @@
 """The port's dispatch layer against the JAX package, on the CPU: the
 phase segments, the phase-segmented guided trajectory (JAX draws replayed
-through the caps-sized cutout layout), segmented = padded under the port's
-keyed draws, chunk times, resume across a phase boundary, the deadline,
-the chunked latent loop, the ensemble's slot caps and the UNet's remat
-policies.  The tiny pipeline's cutout schedule has two phases (overview
+through the caps-sized cutout layout), the ensemble's slot caps and the UNet's remat policies
+(tests/test_torch_dispatch_chunks.py holds the runner's chunks against
+the port itself: segmented = padded under keyed draws, chunk times,
+resume, the deadline, and the chunked latent loop).  The tiny pipeline's cutout schedule has two phases (overview
 4 then 1, inner 1 then 3), as tests/test_segmented.py's."""
 
 import dataclasses
-import itertools
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,23 +19,16 @@ from clip_diffusion_tpu.config import create_schedule as jcreate_schedule
 from clip_diffusion_tpu.diffusion.sampling import SamplerConfig as JSamplerConfig
 from clip_diffusion_tpu.diffusion.schedule import make_schedule as jmake_schedule
 from clip_diffusion_tpu.pipeline import guided as jg
-from clip_diffusion_tpu.pipeline import latent as jlat
 from clip_diffusion_tpu.tests_support import tiny_config as jtiny_config
-from clip_diffusion_tpu.utils.checkpoint import SamplingState as JSamplingState
 from clip_diffusion_tpu_torch import config as tconfig
 from clip_diffusion_tpu_torch import zoo as tzoo
 from clip_diffusion_tpu_torch.diffusion.sampling import SamplerConfig, schedule_tables
 from clip_diffusion_tpu_torch.diffusion.schedule import make_schedule
 from clip_diffusion_tpu_torch.models import unet as tunet
-from clip_diffusion_tpu_torch.models.ldm.unet import LDMUNet, LDMUNetConfig
 from clip_diffusion_tpu_torch.parallel import ensemble as tens
 from clip_diffusion_tpu_torch.pipeline import guided as tg
-from clip_diffusion_tpu_torch.pipeline import latent as tlat
-from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
 from test_torch_guided import JaxReplayDraws, tiny_port_config
-from test_torch_latent import JaxLatentDraws, tiny_unet  # noqa: F401 (fixture)
 from test_torch_parallel import jax_tiny_pipeline
-from test_torch_resume import KeyedReplay
 
 STEPS = 10
 PHASES = dict(overview=((4, 1), (500, 500)), inner=((1, 3), (500, 500)))
@@ -122,127 +113,24 @@ def test_compute_phase_segments_matches_jax(case):
 
 
 def test_segmented_trajectory_matches_jax(phase_pipelines):
-    """The segmented trajectory's second phase (caps (1, 3), positions 5-9)
-    against JAX guided_sample with phase_segmented=True, both resumed from
-    one SamplingState at the phase boundary, the JAX draws replayed from
-    each step's caps-sized slot layout: the histogram threshold's
-    trajectory tolerance, 2e-4 (test_torch_guided.test_five_step_
-    trajectory_matches), and the same dispatch chunks.  In this phase the
-    caps move the inner slots' JAX keys (its overview cap is below the
-    schedule's maximum: test_ensemble_slot_caps_at_world_size_1 shows the
-    padded layout's draws give another step); the first phase's caps
-    (4, 1) keep the padded keys of its active slots, which the padded
-    trajectory tests hold, and a JAX run of it would compile a second
-    program."""
+    """The whole 10-step segmented trajectory, both phases and the hand-over
+    between them, against JAX guided_sample with phase_segmented=True, the
+    JAX draws replayed from each step's caps-sized slot layout: the
+    histogram threshold's trajectory tolerance, 2e-4 (test_torch_guided.
+    test_five_step_trajectory_matches), and the same dispatch chunks."""
     jpipe, jparams, models = phase_pipelines
     key = jax.random.PRNGKey(3)
-    x = np.random.default_rng(12).normal(0, 1, (1, 64, 64, 3)).astype(np.float32)
-    state = dict(x=x, step=4, eps_history=np.zeros((3,) + x.shape, np.float32),
-                 history_count=0, key_data=np.asarray(key, np.uint32))
     jtimes, ttimes = [], []
-    jfinal, jframes = jg.guided_sample(jpipe, jparams, None, chunk_times=jtimes,
-                                       resume_state=JSamplingState(**state))
-    tfinal, tframes = tg.guided_sample(
-        _port_pipe(models), KeyedReplay(key), chunk_times=ttimes,
-        resume_state=SamplingState(**{**state, "x": torch.from_numpy(x),
-                                      "eps_history": torch.from_numpy(state["eps_history"])}))
-    assert [(c, n) for c, n, _ in ttimes] == [(c, n) for c, n, _ in jtimes] == [((1, 3), 5)]
+    jfinal, jframes = jg.guided_sample(jpipe, jparams, key, chunk_times=jtimes)
+    tfinal, tframes = tg.guided_sample(_port_pipe(models), JaxReplayDraws(key),
+                                       chunk_times=ttimes)
+    assert ([(c, n) for c, n, _ in ttimes] == [(c, n) for c, n, _ in jtimes]
+            == [((4, 1), 5), ((1, 3), 5)])
     assert tframes.shape == np.asarray(jframes).shape == (6, 1, 64, 64, 3)
     assert np.isfinite(tframes.numpy()).all()
-    assert not tframes[:3].any() and tframes[3:].abs().amin(dim=(1, 2, 3, 4)).lt(1).all()
+    assert tframes.abs().amin(dim=(1, 2, 3, 4)).lt(1).all()
     np.testing.assert_allclose(tframes.numpy(), np.asarray(jframes), atol=2e-4)
     np.testing.assert_allclose(tfinal.numpy(), np.asarray(jfinal), atol=2e-4)
-
-
-# the port against itself: the first 8 of the 10 steps, 3 into the second phase
-STOP = 8
-
-
-@pytest.fixture(scope="module")
-def torch_runs(phase_pipelines):
-    """The segmented (chunks of 3, chunk times kept) and the padded DDIM
-    trajectories' first STOP steps under the same TorchDraws: {segmented:
-    (SamplingState, frames, progress calls, chunk times)}."""
-    torch.set_num_threads(1)
-    _, _, models = phase_pipelines
-    runs = {}
-    for segmented in (True, False):
-        seen, times = [], []
-        _, frames, state = tg.guided_sample(
-            _port_pipe(models, segmented), tg.TorchDraws(5, "cpu"), max_steps_per_dispatch=3,
-            progress_every=3, chunk_times=times, stop_after=STOP, return_state=True,
-            progress_callback=lambda pos, pred, seen=seen: seen.append((pos, pred.clone())))
-        runs[segmented] = (state, frames, seen, times)
-    return runs
-
-
-def test_segmented_equals_padded_under_torch_draws(torch_runs):
-    """Keyed draws do not depend on the caps: the segmented and the padded
-    trajectories are equal bit for bit across the phase boundary, frames
-    and progress calls included."""
-    (s_seg, fr_seg, p_seg, _), (s_pad, fr_pad, p_pad, _) = torch_runs[True], torch_runs[False]
-    assert torch.equal(s_seg.x, s_pad.x) and torch.equal(fr_seg, fr_pad)
-    assert [p for p, _ in p_seg] == [p for p, _ in p_pad] == [0, 3, 6]
-    assert all(torch.equal(a, b) for (_, a), (_, b) in zip(p_seg, p_pad))
-
-
-def test_chunk_times(phase_pipelines, torch_runs):
-    """(caps, steps, seconds) per chunk: the phases' caps in order, at most
-    max_steps_per_dispatch steps each, 10 in all; ignored when the sampler
-    is not segmented."""
-    times = torch_runs[True][3]
-    segments = tg.compute_phase_segments(_port_pipe(phase_pipelines[2]), STEPS)
-    want = [(caps, min(3, len(steps) - lo)) for steps, caps in segments
-            for lo in range(0, len(steps), 3)]
-    assert want == [((4, 1), 3), ((4, 1), 2), ((1, 3), 3), ((1, 3), 2)]
-    assert [(caps, n) for caps, n, _ in times] == want[:3]  # STOP = 8 steps
-    assert all(isinstance(s, float) and s >= 0 for _, _, s in times)
-    assert torch_runs[False][3] == []
-
-
-def test_resume_across_a_phase_boundary(phase_pipelines, torch_runs):
-    """Segmented, chunks of 3, run as 5 + 3 steps through a SamplingState
-    (the phase boundary lies at position 5) equals the straight run bit for
-    bit."""
-    pipe = _port_pipe(phase_pipelines[2])
-    assert [len(s) for s, _ in tg.compute_phase_segments(pipe, STEPS)] == [5, 5]
-    state, done = None, 0
-    for n in (5, STOP - 5):
-        times = []
-        _, frames, state = tg.guided_sample(
-            pipe, tg.TorchDraws(5, "cpu") if state is None else None, max_steps_per_dispatch=3,
-            resume_state=state, stop_after=n, return_state=True, chunk_times=times)
-        done += n
-        assert state.step == STEPS - 1 - done and sum(k for _, k, _ in times) == n
-    straight_state, straight_frames = torch_runs[True][:2]
-    assert torch.equal(state.x, straight_state.x) and state.step == straight_state.step
-    assert torch.equal(frames[4], straight_frames[4])  # position 7, after the resume
-
-
-def test_deadline(phase_pipelines, monkeypatch):
-    """A deadline already past raises before the first chunk (no step, no
-    chunk time); one that passes after the first chunk keeps that chunk's
-    time; a deadline without phase_segmented raises ValueError."""
-    _, _, models = phase_pipelines
-    pipe = _port_pipe(models)
-    calls = []
-    step = tg.guided_step
-    monkeypatch.setattr(tg, "guided_step", lambda *a, **k: calls.append(a[3]) or step(*a, **k))
-    times = []
-    with pytest.raises(tg.DeadlineExceeded, match=r"caps=\(4, 1\)"):
-        tg.guided_sample(pipe, tg.TorchDraws(5, "cpu"), chunk_times=times, deadline=0.0)
-    assert times == [] and calls == []
-
-    clock = itertools.chain([100.0], itertools.repeat(200.0))
-    monkeypatch.setattr(tg.time, "time", lambda: next(clock))
-    with pytest.raises(tg.DeadlineExceeded, match=r"caps=\(4, 1\)"):
-        tg.guided_sample(pipe, tg.TorchDraws(5, "cpu"), max_steps_per_dispatch=2,
-                         chunk_times=times, deadline=150.0)
-    assert [(caps, n) for caps, n, _ in times] == [((4, 1), 2)]
-    assert calls == [9, 8]
-
-    with pytest.raises(ValueError, match="deadline requires phase_segmented"):
-        tg.guided_sample(_port_pipe(models, False), tg.TorchDraws(5, "cpu"), deadline=1e12)
 
 
 def test_slot_caps_must_hold_the_scheduled_cuts(phase_pipelines):
@@ -271,67 +159,6 @@ def test_ensemble_slot_caps_at_world_size_1(phase_pipelines):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     padded = tg.guided_step(pipe, tables, x, 2, draws)
     assert float((got[0] - padded[0]).abs().max()) > 1e-4
-
-
-# ---------------- the chunked latent loop ----------------
-
-def _latent_case(case):
-    rng = np.random.default_rng(9)
-    ctx_c = rng.normal(0, 1, (2, 5, 16)).astype(np.float32)
-    ctx_u = rng.normal(0, 1, (2, 5, 16)).astype(np.float32)
-    kw = dict(batch_size=2, height=8, width=8, guidance_scale=5.0)
-    extra = {}
-    if case == "plms inpainting":
-        extra = dict(x0_latent=rng.normal(0, 1, (2, 8, 8, 4)).astype(np.float32),
-                     mask=np.zeros((2, 8, 8, 1), np.float32))
-        extra["mask"][:, :4] = 1.0
-        kw.update(steps=7, mode="plms")
-    else:
-        kw.update(steps=7, eta=0.5)
-    return ctx_c, ctx_u, kw, extra
-
-
-@pytest.mark.parametrize("case", ["ddim eta 0.5", "plms inpainting"])
-def test_latent_chunks_equal_one_dispatch(case):
-    """max_steps_per_dispatch 1, 3 and None give the same latents bit for
-    bit (PLMS carries its history across chunks); chunk_times holds the
-    chunks' step counts."""
-    torch.manual_seed(0)
-    pipe = tlat.LatentPipeline(unet=LDMUNet(LDMUNetConfig.tiny()).requires_grad_(False),
-                               downsample=1)
-    ctx_c, ctx_u, kw, extra = _latent_case(case)
-    extra = {k: torch.from_numpy(v) for k, v in extra.items()}
-    runs, times = {}, {}
-    for chunk in (None, 1, 3):
-        times[chunk] = []
-        runs[chunk] = tlat.latent_sample(pipe, tg.TorchDraws(4, "cpu"), torch.from_numpy(ctx_c),
-                                         torch.from_numpy(ctx_u), **kw, **extra,
-                                         max_steps_per_dispatch=chunk, chunk_times=times[chunk])
-    assert torch.isfinite(runs[None]).all()
-    assert torch.equal(runs[1], runs[None]) and torch.equal(runs[3], runs[None])
-    assert times[None] == []
-    assert [n for n, _ in times[1]] == [1] * 7
-    assert [n for n, _ in times[3]] == [3, 3, 1]
-
-
-def test_latent_chunks_match_jax(tiny_unet):  # noqa: F811 (the imported fixture)
-    """Two chunks of 3 steps against JAX latent_sample(max_steps_per_dispatch
-    =3), the JAX draws replayed: CFG DDIM at eta 0.5, atol 1e-4 (the one-dispatch
-    trajectory's tolerance in test_torch_latent)."""
-    jm, params, tm = tiny_unet
-    ctx_c, ctx_u, kw, _ = _latent_case("ddim eta 0.5")
-    kw["steps"] = 6  # two chunks of 3: one JAX program
-    key = jax.random.PRNGKey(4)
-    jpipe = jlat.LatentPipeline(unet_apply=lambda p, x, t, c: jm.apply(p, x, t, c), downsample=1)
-    jtimes, ttimes = [], []
-    ref = np.asarray(jlat.latent_sample(jpipe, {"unet": params}, key, jnp.asarray(ctx_c),
-                                        jnp.asarray(ctx_u), **kw, max_steps_per_dispatch=3,
-                                        chunk_times=jtimes))
-    got = tlat.latent_sample(tlat.LatentPipeline(unet=tm, downsample=1), JaxLatentDraws(key),
-                             torch.from_numpy(ctx_c), torch.from_numpy(ctx_u), **kw,
-                             max_steps_per_dispatch=3, chunk_times=ttimes).numpy()
-    np.testing.assert_allclose(got, ref, atol=1e-4)
-    assert [n for n, _ in ttimes] == [n for n, _ in jtimes] == [3, 3]
 
 
 # ---------------- the UNet's remat policies ----------------

@@ -158,7 +158,7 @@ def test_clip_score_matches_jax():
         lambda t: jm.apply(params, t, method=JCLIPModel.encode_text),
         images, prompts, resolution=cfg.image_resolution)
     got = eval_clip_score.clip_score(tm.encode_image, tm.encode_text, images, prompts,
-                                     cfg.image_resolution)
+                                     cfg.image_resolution, device="cpu")
     assert eval_clip_score.PROMPT_SUITE == jeval.PROMPT_SUITE
     assert len(got) == 3 and max(abs(g) for g in got) > 1e-3
     np.testing.assert_allclose(got, ref, atol=1e-5)
