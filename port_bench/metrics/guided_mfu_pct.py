@@ -1,0 +1,11 @@
+"""The whole guided step's share of the H100's dense bf16 peak: the
+reference's model FLOPs of the traced cycles over their wall seconds (%)."""
+
+from port_bench.flops import H100_BF16_DENSE_FLOPS
+
+
+def read(outcome):
+    t = outcome.trace
+    if t is None or not t.ops or "flops_traced" not in outcome.facts:
+        return None
+    return outcome.facts["flops_traced"] / t.window_s / H100_BF16_DENSE_FLOPS * 100.0
