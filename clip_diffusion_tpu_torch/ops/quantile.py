@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from clip_diffusion_tpu_torch.diffusion.sampling import apply_threshold
+from clip_diffusion_tpu_torch.utils.profiling import annotate
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_BINS = 12288  # the kernel's mode A totals fit 48 KB of shared memory
@@ -144,21 +145,24 @@ def _workspace(device: torch.device, stream: int, ints: int) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, q: float, bins: int, two_level: bool, grid=None) -> torch.Tensor:
-    """One cooperative launch; `grid` (a ctypes.c_int) receives its block count."""
-    lib = _lib()
-    rows, n = x.shape
-    dev = x.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ws = _workspace(dev, stream, _workspace_ints(lib, two_level, bins, rows, dev))
-    out = torch.empty((rows,), dtype=torch.float32, device=dev)
-    err = lib.histogram_quantile_launch(
-        x.data_ptr(), _DTYPE_CODES[x.dtype], int(two_level), out.data_ptr(), ws.data_ptr(),
-        ws.numel(), rows, n, bins, _target(q, n), stream,
-        None if grid is None else ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"histogram quantile kernel launch failed: cudaError {err}")
-    (histogram_abs_quantile if two_level else histogram_quantile).launches += 1
-    return out
+    """One cooperative launch; `grid` (a ctypes.c_int) receives its block count.
+    Each launch is an `ops.quantile` span while a profile collects; the
+    functions' `.launches` count every launch."""
+    with annotate("ops.quantile"):
+        lib = _lib()
+        rows, n = x.shape
+        dev = x.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspace(dev, stream, _workspace_ints(lib, two_level, bins, rows, dev))
+        out = torch.empty((rows,), dtype=torch.float32, device=dev)
+        err = lib.histogram_quantile_launch(
+            x.data_ptr(), _DTYPE_CODES[x.dtype], int(two_level), out.data_ptr(), ws.data_ptr(),
+            ws.numel(), rows, n, bins, _target(q, n), stream,
+            None if grid is None else ctypes.byref(grid))
+        if err != 0:
+            raise RuntimeError(f"histogram quantile kernel launch failed: cudaError {err}")
+        (histogram_abs_quantile if two_level else histogram_quantile).launches += 1
+        return out
 
 
 def _check(name: str, x: torch.Tensor, bins: int) -> bool:

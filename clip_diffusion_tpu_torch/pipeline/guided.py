@@ -50,6 +50,14 @@ active cutout slots, so none of this changes what it computes: under
 The caps reach one thing, the slot layout `cutout_spec(resolution,
 slot_caps)` handed to `draws.cutouts`, which `TorchDraws` ignores and a
 replay of the JAX package's draws (whose keys follow that layout) reads.
+
+Spans (`utils.profiling.annotate`, recorded while a profile collects):
+`guided.sample` around a `guided_sample` call, `guided.step` per
+position, inside it `guided.unet` (the forward and pred_x0),
+`guided.cutouts` per perceptor group, `guided.tower` per perceptor,
+`guided.backward` (the one backward to x) and `guided.update` (clamp,
+step noise, threshold, update), and `guided.progress` around the
+progress callback.
 """
 
 from __future__ import annotations
@@ -96,6 +104,7 @@ from clip_diffusion_tpu_torch.models.unet import split_model_output
 from clip_diffusion_tpu_torch.ops.augment import AugmentDraws
 from clip_diffusion_tpu_torch.ops.quantile import dynamic_threshold_fast
 from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
+from clip_diffusion_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,16 +274,17 @@ def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
     grad = torch.zeros(normed.shape, dtype=torch.float32, device=normed.device)
     for pi in members:
         perc = pipe.perceptors[pi]
-        for i in range(0, n, chunk):
-            leaf = normed[:, i:i + chunk].detach().requires_grad_(True)
-            embs = perc.embed_image(leaf.reshape((-1,) + tail)).reshape(b, leaf.shape[1], -1)
-            w = weights[:, i:i + chunk]
-            loss = cfg.clip_guidance_scale * torch.sum(w * _prompt_distance(embs, perc))
-            if perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
-                scores = perc.aesthetic_fn(l2_normalize(embs, dim=-1))[..., 0]
-                loss = loss - cfg.aesthetic_scale * torch.sum(w * scores)
-            (g,) = torch.autograd.grad(loss, leaf)
-            grad[:, i:i + chunk] += g
+        with annotate("guided.tower"):
+            for i in range(0, n, chunk):
+                leaf = normed[:, i:i + chunk].detach().requires_grad_(True)
+                embs = perc.embed_image(leaf.reshape((-1,) + tail)).reshape(b, leaf.shape[1], -1)
+                w = weights[:, i:i + chunk]
+                loss = cfg.clip_guidance_scale * torch.sum(w * _prompt_distance(embs, perc))
+                if perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
+                    scores = perc.aesthetic_fn(l2_normalize(embs, dim=-1))[..., 0]
+                    loss = loss - cfg.aesthetic_scale * torch.sum(w * scores)
+                (g,) = torch.autograd.grad(loss, leaf)
+                grad[:, i:i + chunk] += g
     return grad.to(normed.dtype)
 
 
@@ -299,8 +309,9 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
     with torch.enable_grad():
         x = x.detach().requires_grad_(True)
         t = tables["scaled_timesteps"][step].expand(b)
-        eps, _ = split_model_output(pipe.unet(x, t))
-        pred_x0 = predict_xstart_from_eps(x, eps, tables, step)
+        with annotate("guided.unet"):
+            eps, _ = split_model_output(pipe.unet(x, t))
+            pred_x0 = predict_xstart_from_eps(x, eps, tables, step)
         factor = tables["sqrt_one_minus_alphas_cumprod"][step].to(x.dtype)
         denoised = pred_x0 * factor + x * (1.0 - factor)
 
@@ -331,18 +342,20 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
                                  f"slot_caps {tuple(slot_caps)}")
             gdtype = cfg.guidance_torch_dtype
             for key, resolution, members in perceptor_groups(pipe, perceptor_subset):
-                spec = pipe.cutout_spec(resolution, slot_caps)
-                cd = draws.cutouts(step, key, b, cfg.num_cutout_batches, spec, n_ov, n_in)
-                cuts, w = make_cutouts_batch(
-                    denoised.to(gdtype), cd, n_ov, n_in, float(power_t[idx]),
-                    float(gray_t[idx]), spec, repeats=cfg.num_cutout_batches,
-                )
-                normed = clip_normalize(cuts)
+                with annotate("guided.cutouts"):
+                    spec = pipe.cutout_spec(resolution, slot_caps)
+                    cd = draws.cutouts(step, key, b, cfg.num_cutout_batches, spec, n_ov, n_in)
+                    cuts, w = make_cutouts_batch(
+                        denoised.to(gdtype), cd, n_ov, n_in, float(power_t[idx]),
+                        float(gray_t[idx]), spec, repeats=cfg.num_cutout_batches,
+                    )
+                    normed = clip_normalize(cuts)
                 outputs.append(normed)
                 out_grads.append(_cut_gradient(pipe, members, normed, w))
 
         if outputs:
-            (grad,) = torch.autograd.grad(outputs, x, out_grads)
+            with annotate("guided.backward"):
+                (grad,) = torch.autograd.grad(outputs, x, out_grads)
         else:
             grad = torch.zeros_like(x)
     return grad.detach(), pred_x0.detach()
@@ -398,11 +411,12 @@ def step_from_gradient(pipe: GuidedPipeline, tables, x, step: int, draws, grad,
                        pred_x0_raw, history: Optional[PLMSHistory] = None):
     """The rest of a guided step once d(loss)/dx is known: clamp, step
     noise, threshold and update -> (x_next, pred_x0_final)."""
-    guidance = clamp_guidance_grad(-grad, pipe.config.grad_threshold)
-    ddim = pipe.sampler.mode == "ddim"
-    noise = draws.step_noise(step, x.shape) if ddim and step > 0 else None
-    return apply_sampler_update(pipe.sampler, tables, x, step, pred_x0_raw,
-                                guidance, noise, history)
+    with annotate("guided.update"):
+        guidance = clamp_guidance_grad(-grad, pipe.config.grad_threshold)
+        ddim = pipe.sampler.mode == "ddim"
+        noise = draws.step_noise(step, x.shape) if ddim and step > 0 else None
+        return apply_sampler_update(pipe.sampler, tables, x, step, pred_x0_raw,
+                                    guidance, noise, history)
 
 
 def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws,
@@ -497,63 +511,66 @@ def guided_sample(
     before a chunk.  The padded loop is one chunk: `deadline` raises
     ValueError there, and `chunk_times` and `max_steps_per_dispatch` are
     ignored."""
-    cfg, sampler = pipe.config, pipe.sampler
-    if not sampler.phase_segmented:
-        if deadline is not None:
-            raise ValueError("deadline requires phase_segmented sampling")
-        chunk_times = None
-    shape = (batch_size, cfg.height, cfg.width, 3)
-    if resume_state is not None:
-        saved = np.asarray(resume_state.key_data, np.uint32)
-        if draws is None:
-            draws = TorchDraws.from_key_data(saved, pipe.device)
-        elif not np.array_equal(draws.key_data(), saved):
-            raise ValueError("resume_state was checkpointed under a different draws key; "
-                             "pass draws=None to resume with the saved key")
-    elif draws is None:
-        raise ValueError("guided_sample: draws are required unless resuming")
-    tables = schedule_tables(pipe.schedule, pipe.device)
-    start = pipe.schedule.num_steps - sampler.skip_timesteps - 1
-    n_steps = start + 1
-    table, n_frames = frame_table(n_steps, num_frames)
-    with torch.no_grad():
-        if resume_state is None:
-            start_pos = 0
-            x = draws.initial_noise(shape).to(torch.float32)
+    with annotate("guided.sample"):
+        cfg, sampler = pipe.config, pipe.sampler
+        if not sampler.phase_segmented:
+            if deadline is not None:
+                raise ValueError("deadline requires phase_segmented sampling")
+            chunk_times = None
+        shape = (batch_size, cfg.height, cfg.width, 3)
+        if resume_state is not None:
+            saved = np.asarray(resume_state.key_data, np.uint32)
+            if draws is None:
+                draws = TorchDraws.from_key_data(saved, pipe.device)
+            elif not np.array_equal(draws.key_data(), saved):
+                raise ValueError("resume_state was checkpointed under a different draws key; "
+                                 "pass draws=None to resume with the saved key")
+        elif draws is None:
+            raise ValueError("guided_sample: draws are required unless resuming")
+        tables = schedule_tables(pipe.schedule, pipe.device)
+        start = pipe.schedule.num_steps - sampler.skip_timesteps - 1
+        n_steps = start + 1
+        table, n_frames = frame_table(n_steps, num_frames)
+        with torch.no_grad():
+            if resume_state is None:
+                start_pos = 0
+                x = draws.initial_noise(shape).to(torch.float32)
+                if init_image is not None:
+                    init = init_image.to(device=pipe.device, dtype=torch.float32)
+                    x = q_sample(init.expand(shape), tables, start, x)
+                history = PLMSHistory(init_history(shape, pipe.device))
+            else:
+                start_pos = start - int(resume_state.step)  # the state's next step counts down
+                x = resume_state.x.to(device=pipe.device, dtype=torch.float32)
+                history = PLMSHistory(resume_state.eps_history.to(device=pipe.device,
+                                                                  dtype=torch.float32),
+                                      int(resume_state.history_count))
             if init_image is not None:
-                x = q_sample(init_image.to(device=pipe.device, dtype=torch.float32).expand(shape),
-                             tables, start, x)
-            history = PLMSHistory(init_history(shape, pipe.device))
-        else:
-            start_pos = start - int(resume_state.step)  # the state's next step counts down
-            x = resume_state.x.to(device=pipe.device, dtype=torch.float32)
-            history = PLMSHistory(resume_state.eps_history.to(device=pipe.device,
-                                                              dtype=torch.float32),
-                                  int(resume_state.history_count))
-        if init_image is not None:
-            init_image = init_image.to(device=pipe.device, dtype=torch.float32)
-        end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
-        plms = history if sampler.mode == "plms" else None
-        frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
-        chunks = (_phase_chunks(pipe, n_steps, start_pos, end_pos, max_steps_per_dispatch)
-                  if sampler.phase_segmented else [(None, range(start_pos, end_pos))])
-        for caps, positions in chunks:
-            if deadline is not None and time.time() > deadline:
-                raise DeadlineExceeded(f"bench deadline passed before chunk at caps={caps}")
-            t0 = time.perf_counter()
-            for pos in positions:
-                x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image, plms,
-                                         caps)
-                if table[pos] >= 0:
-                    frames[table[pos]] = pred_x0
-                if progress_callback is not None and pos % progress_every == 0:
-                    progress_callback(pos, pred_x0)
-            if chunk_times is not None:
-                if pipe.device.type == "cuda":
-                    torch.cuda.synchronize(pipe.device)
-                chunk_times.append((caps, len(positions), time.perf_counter() - t0))
-    if return_state:
-        state = SamplingState(x=x, step=start - end_pos, eps_history=history.eps,
-                              history_count=history.count, key_data=draws.key_data())
-        return frames[-1], frames, state
-    return frames[-1], frames
+                init_image = init_image.to(device=pipe.device, dtype=torch.float32)
+            end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
+            plms = history if sampler.mode == "plms" else None
+            frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
+            chunks = (_phase_chunks(pipe, n_steps, start_pos, end_pos, max_steps_per_dispatch)
+                      if sampler.phase_segmented else [(None, range(start_pos, end_pos))])
+            for caps, positions in chunks:
+                if deadline is not None and time.time() > deadline:
+                    raise DeadlineExceeded(f"bench deadline passed before chunk at caps={caps}")
+                t0 = time.perf_counter()
+                for pos in positions:
+                    with annotate("guided.step"):
+                        x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image,
+                                                 plms, caps)
+                        if table[pos] >= 0:
+                            frames[table[pos]] = pred_x0
+                        if progress_callback is not None and pos % progress_every == 0:
+                            with annotate("guided.progress"):
+                                progress_callback(pos, pred_x0)
+                if chunk_times is not None:
+                    if pipe.device.type == "cuda":
+                        torch.cuda.synchronize(pipe.device)
+                    chunk_times.append((caps, len(positions), time.perf_counter() - t0))
+        if return_state:
+            state = SamplingState(x=x, step=start - end_pos, eps_history=history.eps,
+                                  history_count=history.count, key_data=draws.key_data())
+            return frames[-1], frames, state
+        return frames[-1], frames

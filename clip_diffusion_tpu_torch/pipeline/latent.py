@@ -22,6 +22,9 @@ TorchDraws` draws them from a `torch.Generator` seeded for each draw and
 row from its key, purpose and i; tests replay the JAX package's key
 chain.  Nothing here takes a gradient: the public functions run under
 `torch.inference_mode()`.
+
+Each CFG step of `latent_sample` is a `latent.step` span
+(`utils.profiling.annotate`) while a profile collects.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from clip_diffusion_tpu_torch.diffusion.sampling import init_history, plms_eps, push_history
+from clip_diffusion_tpu_torch.utils.profiling import annotate
 
 LDM_NUM_TIMESTEPS = 1000
 LDM_LINEAR_START = 0.00085
@@ -148,29 +152,30 @@ def latent_sample(
     timed = chunk_times is not None and chunk < steps
     t0 = time.perf_counter()
     for n, i in enumerate(range(steps - 1, -1, -1)):
-        a, a_prev = tables["alphas"][i], tables["alphas_prev"][i]
-        sqrt_1ma, sigma = tables["sqrt_one_minus_alphas"][i], tables["sigmas"][i]
-        if inpaint:
-            noise = draws.inpaint_noise(i, shape).to(device)
-            x_orig = torch.sqrt(a) * x0_latent + sqrt_1ma * noise
-            x = x_orig * mask + (1.0 - mask) * x
-        eps = _model_eps(pipe, x, float(timesteps[i]), context_cond, ctx_u, guidance_scale)
-        if mode == "plms":
-            eps_use = plms_eps(eps, hist, count, order)
-            hist = push_history(eps, hist)
-            count += 1
-        else:
-            eps_use = eps
-        pred_x0 = (x - sqrt_1ma * eps_use) / torch.sqrt(a)
-        dir_xt = torch.sqrt(torch.clamp_min(1.0 - a_prev - sigma ** 2, 0.0)) * eps_use
-        x = torch.sqrt(a_prev) * pred_x0 + dir_xt
-        if eta > 0:
-            x = x + sigma * draws.step_noise(i, shape).to(device)
-        if timed and ((n + 1) % chunk == 0 or i == 0):
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            chunk_times.append(((n % chunk) + 1, time.perf_counter() - t0))
-            t0 = time.perf_counter()
+        with annotate("latent.step"):
+            a, a_prev = tables["alphas"][i], tables["alphas_prev"][i]
+            sqrt_1ma, sigma = tables["sqrt_one_minus_alphas"][i], tables["sigmas"][i]
+            if inpaint:
+                noise = draws.inpaint_noise(i, shape).to(device)
+                x_orig = torch.sqrt(a) * x0_latent + sqrt_1ma * noise
+                x = x_orig * mask + (1.0 - mask) * x
+            eps = _model_eps(pipe, x, float(timesteps[i]), context_cond, ctx_u, guidance_scale)
+            if mode == "plms":
+                eps_use = plms_eps(eps, hist, count, order)
+                hist = push_history(eps, hist)
+                count += 1
+            else:
+                eps_use = eps
+            pred_x0 = (x - sqrt_1ma * eps_use) / torch.sqrt(a)
+            dir_xt = torch.sqrt(torch.clamp_min(1.0 - a_prev - sigma ** 2, 0.0)) * eps_use
+            x = torch.sqrt(a_prev) * pred_x0 + dir_xt
+            if eta > 0:
+                x = x + sigma * draws.step_noise(i, shape).to(device)
+            if timed and ((n + 1) % chunk == 0 or i == 0):
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                chunk_times.append(((n % chunk) + 1, time.perf_counter() - t0))
+                t0 = time.perf_counter()
     return x
 
 

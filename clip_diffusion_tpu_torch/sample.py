@@ -34,6 +34,7 @@ from clip_diffusion_tpu_torch.utils.image_io import (
     make_grid,
     normalize_image_neg_one_to_one,
 )
+from clip_diffusion_tpu_torch.utils.profiling import annotate
 from clip_diffusion_tpu_torch.utils.progress import LocalUploader, store_task_state
 from clip_diffusion_tpu_torch.utils.seeds import random_seed
 from clip_diffusion_tpu_torch.zoo import (
@@ -236,72 +237,83 @@ def latent_diffusion_sample(
     `pipe` and `text_encode` (from `zoo.build_latent_pipeline`, on
     `device`) are given together or not at all: without them the default
     stack is built once per device (`default_latent_stack`).  The modules
-    carry their weights, so there is no `latent_params` argument."""
-    device = resolve_device(device)
-    if pipe is None and text_encode is None:
-        pipe, text_encode = default_latent_stack(device)
-    elif pipe is None or text_encode is None:
-        raise ValueError(
-            "latent_diffusion_sample: pass pipe and text_encode together, or "
-            "neither for the default stack"
-        )
-    uploader = uploader or LocalUploader(output_dir)
-    batch_folder = os.path.join(output_dir, "latent")
-    os.makedirs(batch_folder, exist_ok=True)
+    carry their weights, so there is no `latent_params` argument.
 
-    p = Prompt(prompt, False, 0, device=device)
-    if not seed:
-        seed = random_seed()
+    While a profile collects (`utils.profiling`), the request is a
+    `latent.request` span; inside it `latent.decode` (the VQ decode and
+    its copy to the host), `latent.png` (each PNG write: the images, the
+    grid, the upscales) and `latent.upscale` (each upscaler call and its
+    copy to the host)."""
+    with annotate("latent.request"):
+        device = resolve_device(device)
+        if pipe is None and text_encode is None:
+            pipe, text_encode = default_latent_stack(device)
+        elif pipe is None or text_encode is None:
+            raise ValueError(
+                "latent_diffusion_sample: pass pipe and text_encode together, or "
+                "neither for the default stack"
+            )
+        uploader = uploader or LocalUploader(output_dir)
+        batch_folder = os.path.join(output_dir, "latent")
+        os.makedirs(batch_folder, exist_ok=True)
 
-    ctx_cond = text_encode([p.text] * num_batches)
-    ctx_uncond = None
-    if latent_diffusion_guidance_scale > 0:
-        ctx_uncond = text_encode([""] * num_batches)
+        p = Prompt(prompt, False, 0, device=device)
+        if not seed:
+            seed = random_seed()
 
-    x0_latent = None
-    mask = None
-    if init_image is not None and mask_image is not None:
-        init = normalize_image_neg_one_to_one(
-            load_image(init_image, (sample_width, sample_height)))
-        z = img2img_start(pipe, torch.from_numpy(init)[None].to(device))
-        x0_latent = z.repeat(num_batches, 1, 1, 1)
-        m = load_mask(mask_image, (sample_width // pipe.downsample,
-                                   sample_height // pipe.downsample))
-        mask = torch.from_numpy(m)[None].to(device).repeat(num_batches, 1, 1, 1)
+        ctx_cond = text_encode([p.text] * num_batches)
+        ctx_uncond = None
+        if latent_diffusion_guidance_scale > 0:
+            ctx_uncond = text_encode([""] * num_batches)
 
-    all_images = []
-    count = 0
-    for iteration in range(num_iterations):
-        z = latent_sample(
-            pipe, TorchDraws(iteration_seed(seed, iteration), device), ctx_cond, ctx_uncond,
-            batch_size=num_batches, height=sample_height, width=sample_width,
-            steps=diffusion_steps, guidance_scale=latent_diffusion_guidance_scale,
-            eta=eta, mode=sample_mode, x0_latent=x0_latent, mask=mask,
-        )
-        images01 = decode_latents(pipe, z).float().cpu().numpy()
-        for img in images01:
-            array_to_image(img).save(os.path.join(batch_folder, f"latent_{count}.png"))
-            count += 1
-        store_task_state("current_iteration", iteration + 1)
-        all_images.append(images01)
+        x0_latent = None
+        mask = None
+        if init_image is not None and mask_image is not None:
+            init = normalize_image_neg_one_to_one(
+                load_image(init_image, (sample_width, sample_height)))
+            z = img2img_start(pipe, torch.from_numpy(init)[None].to(device))
+            x0_latent = z.repeat(num_batches, 1, 1, 1)
+            m = load_mask(mask_image, (sample_width // pipe.downsample,
+                                       sample_height // pipe.downsample))
+            mask = torch.from_numpy(m)[None].to(device).repeat(num_batches, 1, 1, 1)
 
-    grid = make_grid(np.concatenate(all_images, axis=0), nrow=num_batches)
-    grid_img = draw_index_on_grid_image(array_to_image(grid), num_iterations, num_batches,
-                                        sample_height, sample_width)
-    grid_path = os.path.join(batch_folder, "latent_grid_image.png")
-    grid_img.save(grid_path)
-    grid_url = uploader.upload(grid_path)
+        all_images = []
+        count = 0
+        for iteration in range(num_iterations):
+            z = latent_sample(
+                pipe, TorchDraws(iteration_seed(seed, iteration), device), ctx_cond, ctx_uncond,
+                batch_size=num_batches, height=sample_height, width=sample_width,
+                steps=diffusion_steps, guidance_scale=latent_diffusion_guidance_scale,
+                eta=eta, mode=sample_mode, x0_latent=x0_latent, mask=mask,
+            )
+            with annotate("latent.decode"):
+                images01 = decode_latents(pipe, z).float().cpu().numpy()
+            with annotate("latent.png"):
+                for img in images01:
+                    array_to_image(img).save(os.path.join(batch_folder, f"latent_{count}.png"))
+                    count += 1
+            store_task_state("current_iteration", iteration + 1)
+            all_images.append(images01)
 
-    if upscaler is not None:
-        os.makedirs(os.path.join(batch_folder, "sr"), exist_ok=True)
-        for i in range(count):
-            img = load_image(os.path.join(batch_folder, f"latent_{i}.png"))
-            up = upscaler(torch.from_numpy(img)[None].to(device))
-            array_to_image(up[0].float().cpu().numpy()).save(
-                os.path.join(batch_folder, "sr", f"latent_{i}.png"))
+        grid_path = os.path.join(batch_folder, "latent_grid_image.png")
+        with annotate("latent.png"):
+            grid = make_grid(np.concatenate(all_images, axis=0), nrow=num_batches)
+            grid_img = draw_index_on_grid_image(array_to_image(grid), num_iterations, num_batches,
+                                                sample_height, sample_width)
+            grid_img.save(grid_path)
+        grid_url = uploader.upload(grid_path)
 
-    return {
-        "grid_url": grid_url,
-        "images": [os.path.join(batch_folder, f"latent_{i}.png") for i in range(count)],
-        "seed": int(seed),
-    }
+        if upscaler is not None:
+            os.makedirs(os.path.join(batch_folder, "sr"), exist_ok=True)
+            for i in range(count):
+                img = load_image(os.path.join(batch_folder, f"latent_{i}.png"))
+                with annotate("latent.upscale"):
+                    up = upscaler(torch.from_numpy(img)[None].to(device))[0].float().cpu().numpy()
+                with annotate("latent.png"):
+                    array_to_image(up).save(os.path.join(batch_folder, "sr", f"latent_{i}.png"))
+
+        return {
+            "grid_url": grid_url,
+            "images": [os.path.join(batch_folder, f"latent_{i}.png") for i in range(count)],
+            "seed": int(seed),
+        }

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import os
 import threading
-import time
 from typing import Any, Dict, Optional
 
 
@@ -130,17 +129,3 @@ def default_uploader(base_dir: str = "output_images") -> Uploader:
             pass
     return LocalUploader(base_dir)
 
-
-class StepTimer:
-    """Wall seconds per counted step since construction."""
-
-    def __init__(self):
-        self.t0 = time.time()
-        self.steps = 0
-
-    def tick(self, n: int = 1):
-        self.steps += n
-
-    @property
-    def per_step(self) -> float:
-        return (time.time() - self.t0) / max(self.steps, 1)

@@ -1,0 +1,9 @@
+"""Device idle time of the traced guided cycles while the host was in the
+UNet forward and pred_x0 (`guided.unet`), the innermost span open, per
+step (ms); `port_bench.spans` gives each idle ns to a span."""
+
+from port_bench import spans
+
+
+def read(outcome):
+    return spans.idle_ms(outcome, "guided.unet", outcome.facts.get("steps_traced", 0))

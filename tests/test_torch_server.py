@@ -565,12 +565,6 @@ def test_local_uploader_url_base_and_task_state_snapshot(tmp_path):
     assert state.get("k") == 1
 
 
-def test_step_timer():
-    timer = progress.StepTimer()
-    timer.tick(4)
-    assert timer.steps == 4 and 0 <= timer.per_step < 1.0
-
-
 def test_dirs_and_image_to_array(tmp_path):
     from clip_diffusion_tpu_torch.utils.dirs import list_images, make_dir
     from clip_diffusion_tpu_torch.utils.image_io import image_to_array

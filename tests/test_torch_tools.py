@@ -33,7 +33,8 @@ from clip_diffusion_tpu_torch.pipeline.guided import GuidedPipeline, compute_pha
 from clip_diffusion_tpu_torch.tools import build_banks, eval_clip_score, fetch_and_convert
 from clip_diffusion_tpu_torch.tools import profile_step
 from clip_diffusion_tpu_torch.utils import clear_device_cache
-from clip_diffusion_tpu_torch.utils.profiling import Stopwatch, annotate, trace
+from clip_diffusion_tpu_torch.utils import profiling
+from clip_diffusion_tpu_torch.utils.profiling import annotate, trace
 from test_torch_checkpoint import SLOTS, TINY_CLIP, _assert_same, _sd
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -52,25 +53,30 @@ def _names(kind):
 
 # ---------------- utils.profiling ----------------
 
-def test_stopwatch_trace_and_annotate(tmp_path):
-    watch = Stopwatch()
-    for _ in range(2):
-        with watch.section("a"):
-            time.sleep(0.01)
-    report = json.loads(watch.report())
-    assert list(report) == ["a"] and report["a"] >= 0.02
-
+def test_stopwatch_trace_and_annotate(tmp_path, monkeypatch):
+    """`trace` writes a Chrome trace holding the `annotate` names; inside it
+    the spans are recorded, and `totals` (which replaced the section
+    stopwatch) sums them by name; outside every profile nothing is."""
+    monkeypatch.setattr(profiling, "_RECORDER", profiling.Recorder())
     with trace(str(tmp_path / "tb")) as path:
         with annotate("outer_region"):
-            with annotate("inner_region"):
-                torch.ones(8).sum()
+            for _ in range(2):
+                with annotate("inner_region"):
+                    time.sleep(0.01)
+                    torch.ones(8).sum()
     with open(path, encoding="utf-8") as f:
         text = f.read()
     assert os.path.dirname(path) == str(tmp_path / "tb")
     assert "outer_region" in text and "inner_region" in text
+    totals = profiling.totals()
+    assert set(totals) == {"outer_region", "inner_region"}
+    assert totals["inner_region"][0] == 2 and totals["inner_region"][1] >= 0.02
+    assert totals["outer_region"][0] == 1 and totals["outer_region"][1] >= totals["inner_region"][1]
     with trace(None) as nothing:
-        torch.ones(2).sum()
+        with annotate("untraced"):
+            torch.ones(2).sum()
     assert nothing is None and glob.glob(str(tmp_path / "tb" / "*")) == [path]
+    assert "untraced" not in profiling.totals()
     clear_device_cache()  # no CUDA here: garbage collection only
 
 
