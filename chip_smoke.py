@@ -1452,7 +1452,9 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
     t0 = time.perf_counter()
     two_steps()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # CUDA activity only: with CPU activity too, the records of a replayed CUDA
+    # graph's kernels (the LDM UNet's) overlap, and their sum reads about 3x
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         two_steps()
     by_class, by_name = {}, {}
     for evt in prof.events():
@@ -1468,9 +1470,10 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
             fn()
         return counter.get_total_flops()
 
-    flops = count_flops(lambda: pipe.unet(torch.zeros((6, 32, 32, 4), device=dev),
-                                          torch.full((6,), 981.0, device=dev),
-                                          torch.cat([ctx_u, ctx_c])))
+    # the eager forward: a replay of the UNet's CUDA graph hides its ops from the counter
+    flops = count_flops(lambda: pipe.unet._forward(torch.zeros((6, 32, 32, 4), device=dev),
+                                                   torch.full((6,), 981.0, device=dev),
+                                                   torch.cat([ctx_u, ctx_c])))
     print(f"latent profile 256x256 (3 images, UNet batch 6): wall {wall_ms:.2f} ms/step, device "
           f"{device_ms:.2f} ms/step, idle share {1 - device_ms / wall_ms:.3f}; UNet forward "
           f"{flops / 1e12:.3f} TFLOP (matmuls and convs), {flops / device_ms / 1e9:.1f} "

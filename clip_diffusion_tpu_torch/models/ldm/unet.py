@@ -23,10 +23,23 @@ Numerics kept from the JAX package:
 * GEGLU's gate through the exact (erf) GELU in float32.
 
 Nothing on the latent path takes a gradient, so there is no remat.
+
+On CUDA inputs with grad mode off (`torch.no_grad`, `torch.inference_mode`)
+`LDMUNet.forward` replays the forward from a captured CUDA graph: about a
+thousand small launches at the latent shapes cost the host more than the
+device's work, and the graph enqueues them in one call.  Hooks still run
+once per call around the replay.  A graph is captured per input shapes,
+dtypes and device on its first call (two warm-up forwards on a side
+stream, then the capture); at most `GRAPHS_PER_MODULE` are kept, the
+least recently used dropped first, all in one memory pool of the module.
+One caller at a time per module: the replay reads the module's static
+input buffers.  The forward must stay capturable: no host syncs and no
+host-to-device copies in `_forward`.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Tuple
@@ -45,6 +58,9 @@ from clip_diffusion_tpu_torch.models.unet import (
     Upsample,
     timestep_embedding,
 )
+from clip_diffusion_tpu_torch.utils.profiling import annotate
+
+GRAPHS_PER_MODULE = 4  # captured input shapes an LDMUNet keeps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,9 +173,15 @@ class SpatialTransformer(nn.Module):
         return x + self.proj_out(y)
 
 
+def _drop_graphs(unet, _incompatible_keys=None):
+    unet._graphs.clear()
+    unet._graph_pool = None
+
+
 class LDMUNet(nn.Module):
     """eps-model over latents: (x NHWC, t (B,), context (B, S, D)) -> NHWC
-    float32."""
+    float32, replayed from a CUDA graph on the card without grad (see the
+    module docstring); `_forward` is the eager forward."""
 
     def __init__(self, config: LDMUNetConfig):
         super().__init__()
@@ -214,6 +236,17 @@ class LDMUNet(nn.Module):
             GroupNorm32(ch), nn.SiLU(), Conv2d(ch, cfg.out_channels, 3, padding=1, dtype=dt),
         ])
 
+        # input key -> (graph, static inputs, static output), least recently used first
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self._graph_pool = None  # (memory pool, side stream) that every capture shares
+        # a graph reads the parameters' storage as captured: loading with
+        # assign=True or `.to()` moves it, so both drop the graphs and their pool
+        self.register_load_state_dict_post_hook(_drop_graphs)
+
+    def _apply(self, fn, *args, **kwargs):
+        _drop_graphs(self)
+        return super()._apply(fn, *args, **kwargs)
+
     @staticmethod
     def _run(layer, h, emb, context):
         if isinstance(layer, ResBlock):
@@ -223,6 +256,47 @@ class LDMUNet(nn.Module):
         return layer(h)
 
     def forward(self, x, timesteps, context):
+        args = (x, timesteps, context)
+        if torch.is_grad_enabled() or not all(a.is_cuda for a in args):
+            return self._forward(*args)
+        key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+        if key in self._graphs:
+            self._graphs.move_to_end(key)
+        else:
+            self._graphs[key] = self._capture(args)
+            if len(self._graphs) > GRAPHS_PER_MODULE:
+                self._graphs.popitem(last=False)
+        graph, inputs, out = self._graphs[key]
+        for buf, a in zip(inputs, args):
+            buf.copy_(a)
+        with annotate("ldm.unet.replay"):
+            graph.replay()
+        # the static output is overwritten by the next replay
+        return out.clone()
+
+    def _capture(self, args):
+        """A CUDA graph of `_forward` on static copies of `args` -> (graph,
+        static inputs, static output).  Outside inference mode, so that the
+        buffers also take inputs under plain `no_grad`."""
+        device = args[0].device
+        with torch.cuda.device(device), torch.inference_mode(False), torch.no_grad():
+            inputs = tuple(torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
+                           for a in args)
+            if self._graph_pool is None:
+                self._graph_pool = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+            pool, stream = self._graph_pool
+            # cuDNN and cuBLAS pick algorithms and workspaces before the capture
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                for _ in range(2):
+                    self._forward(*inputs)
+            torch.cuda.current_stream(device).wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                out = self._forward(*inputs)
+        return graph, inputs, out
+
+    def _forward(self, x, timesteps, context):
         cfg = self.config
         emb = timestep_embedding(timesteps, cfg.model_channels)
         emb = self.time_embed[0](emb.to(cfg.dtype))

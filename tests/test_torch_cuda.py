@@ -10,6 +10,8 @@ against their plain PyTorch versions on the same device inputs, bit for bit:
 the kernel evaluates the plain versions' float32 expressions in their order
 and counts with integers."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,12 +19,14 @@ import torch
 from clip_diffusion_tpu_torch import zoo
 from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.esrgan import upscale
+from clip_diffusion_tpu_torch.models.ldm.unet import GRAPHS_PER_MODULE, LDMUNet, LDMUNetConfig
 from clip_diffusion_tpu_torch.models.marian import MarianConfig, greedy_decode, marian_tokenize
 from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, t5_tokenize
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.ops.augment import affine_gather
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, latent_sample
+from clip_diffusion_tpu_torch.utils import profiling
 from clip_diffusion_tpu_torch.ops.quantile import (
     dynamic_threshold_fast,
     histogram_abs_quantile,
@@ -192,6 +196,116 @@ def test_tiny_latent_stack_on_card_matches_cpu(cuda):
     for cpu, gpu in zip(outs["cpu"], outs["cuda"]):
         assert torch.isfinite(gpu).all()
         torch.testing.assert_close(gpu, cpu, rtol=0, atol=1e-3)
+
+
+def _random_ldm_unet(cfg, dev, seed):
+    """An LDM UNet on `dev` with every parameter drawn from the seed (no
+    zero layer): weights ~ N(0, 1/fan_in), norm scales 1 + N(0, 0.01)."""
+    with torch.device(dev):
+        unet = LDMUNet(cfg).requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(seed)
+    for name, p in unet.named_parameters():
+        noise = torch.randn(p.shape, generator=g, device=dev)
+        if p.dim() > 1:
+            p.copy_(noise * p[0].numel() ** -0.5)
+        else:
+            p.copy_(noise * 0.1 + float(name.endswith("weight")))
+    return unet
+
+
+def _ldm_inputs(cfg, batch, hw, ctx_len, dev, seed):
+    g = torch.Generator(dev).manual_seed(seed)
+    return (torch.randn((batch, hw, hw, cfg.in_channels), generator=g, device=dev),
+            torch.randint(1, 1000, (batch,), generator=g, device=dev).float(),
+            torch.randn((batch, ctx_len, cfg.context_dim), generator=g, device=dev))
+
+
+def _device_kernels(prof) -> int:
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ldm_unet_graph_replays_the_eager_forward(cuda, dtype, monkeypatch):
+    """The tiny LDM UNet without grad on the card, replayed from its CUDA
+    graphs: bit for bit `_forward` at two batch sizes, a graph captured
+    under inference mode also taking calls under `no_grad`; every call
+    with new inputs gets their answer, and the output it returned keeps
+    its values through later calls; the forward hook fires once per call
+    with the caller's tensors and the returned output; one
+    `ldm.unet.replay` span per replayed call, whose kernels the
+    profiler sees; at most GRAPHS_PER_MODULE graphs, the least recently
+    used dropped."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(LDMUNetConfig.tiny(), dtype=dtype)
+    unet = _random_ldm_unet(cfg, cuda, 0)
+    seen = []
+    hook = unet.register_forward_hook(lambda _m, args, out: seen.append((args, out)))
+    calls = []
+    for k, batch in enumerate((2, 2, 6, 6, 2)):
+        args = _ldm_inputs(cfg, batch, 8, 5, cuda, k)
+        with torch.inference_mode() if k % 2 == 0 else torch.no_grad():
+            got = unet(*args)
+            want = unet._forward(*args)
+        assert torch.equal(got, want), f"call {k}: {(got - want).abs().max().item()}"
+        assert seen[-1][1] is got and all(a is b for a, b in zip(seen[-1][0], args))
+        calls.append((got, got.clone()))
+    assert len(seen) == 5 and len(unet._graphs) == 2
+    assert not torch.equal(calls[0][0], calls[1][0])
+    for got, copy in calls:
+        assert torch.equal(got, copy)
+
+    monkeypatch.setattr(profiling, "_RECORDER", profiling.Recorder())
+    args = _ldm_inputs(cfg, 6, 8, 5, cuda, 9)
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        with torch.profiler.profile(activities=activities) as eager:
+            unet._forward(*args)
+            torch.cuda.synchronize(cuda)
+        with torch.profiler.profile(activities=activities) as replayed:
+            unet(*args)
+            unet(*args)
+            torch.cuda.synchronize(cuda)
+    names = [s.name for s in profiling.spans()]
+    assert names.count("ldm.unet.replay") == 2
+    print(f"{dtype}: {_device_kernels(eager)} kernels eager, "
+          f"{_device_kernels(replayed)} in two replayed calls")
+    assert _device_kernels(replayed) >= 2 * _device_kernels(eager)
+
+    for batch in (1, 3, 4, 5):
+        with torch.no_grad():
+            unet(*_ldm_inputs(cfg, batch, 8, 5, cuda, batch))
+    hook.remove()
+    assert len(unet._graphs) == GRAPHS_PER_MODULE == 4
+    assert [key[0][0][0] for key in unet._graphs] == [1, 3, 4, 5]
+
+
+@pytest.mark.cuda
+def test_full_width_ldm_unet_graph_equals_eager(cuda):
+    """txt2img-f8-large's UNet in bfloat16 at the latent request's CFG
+    shape (6 x 32 x 32 x 4, context 6 x 77 x 1280): the replayed graph
+    equals the eager forward bit for bit, twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LDMUNetConfig()
+    unet = _random_ldm_unet(cfg, cuda, 1)
+    with torch.inference_mode():
+        unet._forward(*_ldm_inputs(cfg, 6, 32, 77, cuda, 9))
+        torch.cuda.synchronize(cuda)
+        reserved = torch.cuda.memory_reserved(cuda)
+        for k in range(2):
+            args = _ldm_inputs(cfg, 6, 32, 77, cuda, 10 + k)
+            got = unet(*args)
+            want = unet._forward(*args)
+            gap = (got - want).abs().max().item()
+            print(f"full width, call {k}: largest gap {gap}, |eps| max "
+                  f"{want.abs().max().item():.4f}")
+            assert torch.equal(got, want)
+    print(f"memory reserved: {reserved / 2 ** 20:.1f} MiB after an eager forward, "
+          f"{torch.cuda.memory_reserved(cuda) / 2 ** 20:.1f} MiB after the capture")
+    del unet
 
 
 @pytest.mark.cuda

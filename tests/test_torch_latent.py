@@ -106,6 +106,43 @@ def test_tiny_ldm_unet_matches(tiny_unet):
     np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode"])
+def test_ldm_unet_on_cpu_runs_eagerly(tiny_unet, mode):
+    """CPU inputs take the eager forward in every grad mode: no CUDA graph
+    is cached, the output equals `_forward`'s exactly, and a forward hook
+    sees the caller's tensors and the returned output."""
+    _, _, tm = tiny_unet
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 8, 8, 4)).astype(np.float32))
+    t = torch.tensor([981.0, 21.0])
+    ctx = torch.from_numpy(rng.normal(0, 1, (2, 5, 16)).astype(np.float32))
+    seen = []
+    hook = tm.register_forward_hook(lambda _m, args, out: seen.append((args, out)))
+    grad = {"grad": contextlib.nullcontext, "no_grad": torch.no_grad,
+            "inference_mode": torch.inference_mode}[mode]
+    try:
+        with grad():
+            got = tm(x, t, ctx)
+            want = tm._forward(x, t, ctx)
+    finally:
+        hook.remove()
+    assert not tm._graphs
+    assert torch.equal(got, want)
+    (args, out), = seen
+    assert all(a is b for a, b in zip(args, (x, t, ctx))) and out is got
+
+
+def test_ldm_unet_drops_its_graphs_when_the_weights_move():
+    """A captured graph reads the parameters' storage: `.to()`-style moves
+    and `load_state_dict(assign=True)` replace it, so both empty the cache
+    and drop its memory pool."""
+    tm = tunet.LDMUNet(tunet.LDMUNetConfig.tiny())
+    for move in (tm.float, lambda: tm.load_state_dict(tm.state_dict(), assign=True)):
+        tm._graphs["key"], tm._graph_pool = "graph", "pool"
+        move()
+        assert not tm._graphs and tm._graph_pool is None
+
+
 def _attention_rule(key):
     """CrossAttention alone: to_q/to_k/to_v/to_out.0 -> its JAX leaves."""
     parts = key.split(".")
