@@ -120,7 +120,14 @@ Phases, each announced on its own line; any failure exits non-zero:
     on phase 6's release-file root, which names as MISSING exactly the slots
     phase 6 did not write and fails with exit code 1; `utils.profiling.
     trace` around one segmented step, its Chrome trace holding the
-    `annotate` name.
+    `annotate` name;
+23. sdxl: Stable Diffusion XL base 1.0's UNet (bfloat16, 2,567,463,684
+    parameters drawn from a seed) at the SDXL cell's CFG shape (6 x 128 x
+    128 x 4, context 6 x 77 x 2048, vector 6 x 2816): the replayed CUDA
+    graph equals the eager forward bit for bit, twice; one replayed and
+    one eager forward's device ms under torch.profiler, the attention
+    calls of a forward (140: 70 transformer blocks, self and cross) and
+    the memory the capture reserved.
 
 On every path the kernel launch counts are zeroed just before it runs and
 read just after: on the guided paths (the auto-modifier request, the
@@ -175,6 +182,7 @@ from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_conf
 from clip_diffusion_tpu_torch.models.clip.tokenizer import tokenize
 from clip_diffusion_tpu_torch.models.convert import release_unet_state_dict
 from clip_diffusion_tpu_torch.models.esrgan import upscale
+from clip_diffusion_tpu_torch.models.ldm import unet as ldm_unet
 from clip_diffusion_tpu_torch.models.marian import (
     MarianConfig,
     greedy_decode,
@@ -1950,6 +1958,59 @@ def run_tools(dev, models: ZooModels, config: Config, default_models: ZooModels,
     return launches
 
 
+def run_sdxl_graph(dev) -> dict:
+    """Phase 23: SDXL base 1.0's UNet replayed from its CUDA graph at the
+    SDXL cell's CFG shape against its eager forward (see the module
+    docstring)."""
+    cfg = ldm_unet.LDMUNetConfig.sdxl()
+    with torch.device(dev):
+        unet = ldm_unet.LDMUNet(cfg).requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(15)
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            noise = torch.randn(p.shape, generator=g, device=dev)
+            if p.dim() > 1:
+                p.copy_(noise * p[0].numel() ** -0.5)
+            else:
+                p.copy_(noise * 0.1 + float(name.endswith("weight")))
+    params = _param_count(unet)
+
+    def inputs(seed):
+        gi = torch.Generator(dev).manual_seed(seed)
+        return (torch.randn((6, 128, 128, 4), generator=gi, device=dev),
+                torch.randint(1, 1000, (6,), generator=gi, device=dev).float(),
+                torch.randn((6, 77, cfg.context_dim), generator=gi, device=dev),
+                torch.randn((6, cfg.adm_in_channels), generator=gi, device=dev))
+
+    with torch.inference_mode():
+        unet._forward(*inputs(0))
+        torch.cuda.synchronize(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        gaps = []
+        for k in range(2):
+            args = inputs(1 + k)
+            got = unet(*args)
+            want = unet._forward(*args)
+            gaps.append((got - want).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"sdxl: graphed forward differs from eager by {gaps[-1]}")
+        before = ldm_unet.attention.calls
+        unet(*args)
+        calls = ldm_unet.attention.calls - before
+        replay_ms = profiled_device_ms(lambda: unet(*args))
+        eager_ms = profiled_device_ms(lambda: unet._forward(*args))
+    captured = torch.cuda.memory_reserved(dev) - reserved
+    print(f"sdxl: UNet {params:,} parameters, graphed = eager bit for bit at 6 x 128 x 128 x 4 "
+          f"(largest gaps {gaps}, |eps| max {want.abs().max().item():.4f}); device "
+          f"{replay_ms:.2f} ms a replayed forward, {eager_ms:.2f} ms eager; {calls} attention "
+          f"calls a forward; the capture reserved {captured / 2 ** 20:.1f} MiB", flush=True)
+    if calls != 140 or params != 2567463684:
+        raise AssertionError(f"sdxl: {calls} attention calls, {params} parameters")
+    del unet, got, want
+    torch.cuda.empty_cache()
+    return {"replay_ms": replay_ms, "eager_ms": eager_ms, "attention_calls": calls}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=10)
@@ -2063,6 +2124,9 @@ def main(argv=None) -> int:
     phase("tools", t_start)
     by_path.update(run_tools(dev, main_models, main_config, default_models, weights.name))
     weights.cleanup()
+
+    phase("sdxl", t_start)
+    run_sdxl_graph(dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     for rec in records:

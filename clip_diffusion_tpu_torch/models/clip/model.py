@@ -12,6 +12,14 @@ a stride-p conv whose (width, c, p, p) weight is the JAX (p, p, c, width)
 kernel transposed.  Image inputs are CLIP-normalized NHWC; apply
 `clip_normalize` to [0, 1] images first.
 
+Text towers alone (`CLIPTextModel`, no vision tower built), as Stable
+Diffusion XL conditions on them: OpenAI CLIP ViT-L/14's (QuickGELU) and
+OpenCLIP ViT-bigG/14's (exact GELU, `CLIP_TEXT_PRESETS`), each giving the
+hidden state after a chosen number of blocks without `ln_final`, and
+beside it the pooled output (`ln_final` of the last block at the EOT
+token, times `text_projection`).  The keys are the OpenAI checkpoints' text
+keys; OpenCLIP's are the same.
+
 ModifiedResNet: the 3-conv stem with a 2x2 average pool, bottlenecks whose
 downsampling is an average pool before a stride-1 conv, and an attention
 pool (mean token prepended, separate q/k/v projections, query from token 0
@@ -69,6 +77,23 @@ class CLIPConfig:
         return self.vision_patch_size is not None
 
 
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """A text tower alone.  `act` is "quick_gelu" (OpenAI CLIP) or "gelu"
+    (OpenCLIP, exact); `embed_dim` is the width of `text_projection`, 0
+    for a tower built without it (SDXL's CLIP ViT-L/14, whose pooled
+    output nothing reads)."""
+
+    width: int
+    heads: int
+    layers: int
+    embed_dim: int = 0
+    act: str = "quick_gelu"
+    context_length: int = CONTEXT_LENGTH
+    vocab_size: int = VOCAB_SIZE
+    dtype: torch.dtype = torch.float32
+
+
 CLIP_PRESETS = {
     "ViT-B/32": CLIPConfig("ViT-B/32", 512, 224, 12, 768, 32, 12),
     "ViT-B/16": CLIPConfig("ViT-B/16", 512, 224, 12, 768, 16, 12),
@@ -78,6 +103,13 @@ CLIP_PRESETS = {
     ),
     "RN50": CLIPConfig("RN50", 1024, 224, (3, 4, 6, 3), 64, None, 32),
     "RN101": CLIPConfig("RN101", 512, 224, (3, 4, 23, 3), 64, None, 32),
+}
+
+
+CLIP_TEXT_PRESETS = {
+    "ViT-L/14": CLIPTextConfig(768, 12, 12, 768),
+    # OpenCLIP ViT-bigG-14 (laion2b_s39b_b160k): width 1280, 20 heads, 32 layers
+    "ViT-bigG/14": CLIPTextConfig(1280, 20, 32, 1280, act="gelu"),
 }
 
 
@@ -138,22 +170,27 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(out)
 
 
+# the MLP's activation: OpenAI CLIP's QuickGELU, or OpenCLIP's exact (erf) GELU
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
+
+
 class MLP(nn.Module):
-    def __init__(self, width: int, dtype=torch.float32):
+    def __init__(self, width: int, dtype=torch.float32, act: str = "quick_gelu"):
         super().__init__()
+        self.act = ACTIVATIONS[act]
         self.c_fc = Linear(width, 4 * width, dtype=dtype)
         self.c_proj = Linear(4 * width, width, dtype=dtype)
 
     def forward(self, x):
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        return self.c_proj(self.act(self.c_fc(x)))
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int, dtype=torch.float32):
+    def __init__(self, width: int, heads: int, dtype=torch.float32, act: str = "quick_gelu"):
         super().__init__()
         self.attn = MultiheadAttention(width, heads, dtype)
         self.ln_1 = LayerNormF32(width)
-        self.mlp = MLP(width, dtype)
+        self.mlp = MLP(width, dtype, act)
         self.ln_2 = LayerNormF32(width)
 
     def forward(self, x, mask=None):
@@ -162,10 +199,11 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, dtype=torch.float32):
+    def __init__(self, width: int, layers: int, heads: int, dtype=torch.float32,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)
+            ResidualAttentionBlock(width, heads, dtype, act) for _ in range(layers)
         )
 
     def forward(self, x, mask=None):
@@ -346,13 +384,53 @@ class CLIPModel(nn.Module):
 
     def encode_text(self, tokens):
         """(B, 77) int token ids -> (B, embed_dim) float32, EOT-pooled."""
-        dt = self.cfg.dtype
-        x = self.token_embedding(tokens).to(dt)
-        x = x + self.positional_embedding.to(dt)
-        t = tokens.shape[1]
-        mask = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
-        x = self.transformer(x, mask)
-        x = self.ln_final(x)
-        eot = torch.argmax(tokens, dim=-1)
-        pooled = x[torch.arange(x.shape[0], device=x.device), eot]
-        return (pooled @ self.text_projection.to(pooled.dtype)).to(torch.float32)
+        _, pooled = _text_forward(self, self.cfg.dtype, tokens, None)
+        return pooled
+
+
+def _text_forward(tower, dt, tokens, hidden_layer: Optional[int]):
+    """The causal text transformer of `tower` (a `CLIPModel` or a
+    `CLIPTextModel`) -> (hidden state after `hidden_layer` blocks without
+    `ln_final`, in `dt`; the pooled projection (B, embed_dim) float32).
+    `hidden_layer` None: no hidden state, every block runs.  Without a
+    `text_projection` the pooled output is None and only the blocks the
+    hidden state needs run."""
+    x = tower.token_embedding(tokens).to(dt)
+    x = x + tower.positional_embedding.to(dt)
+    t = tokens.shape[1]
+    mask = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
+    pool = tower.text_projection is not None
+    blocks = tower.transformer.resblocks
+    hidden = None
+    for i, block in enumerate(blocks if pool else blocks[:hidden_layer]):
+        if i == hidden_layer:
+            hidden = x
+        x = block(x, mask)
+    if hidden_layer is not None and hidden is None:  # after the last block run
+        hidden = x
+    if not pool:
+        return hidden, None
+    x = tower.ln_final(x)
+    eot = torch.argmax(tokens, dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    return hidden, (pooled @ tower.text_projection.to(pooled.dtype)).to(torch.float32)
+
+
+class CLIPTextModel(nn.Module):
+    """The text tower alone: `encode(tokens, hidden_layer)` -> (hidden
+    state after `hidden_layer` blocks, without `ln_final`, in the compute
+    dtype; the pooled projection (B, embed_dim) float32, or None without
+    `text_projection`)."""
+
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.width)
+        self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, cfg.width))
+        self.transformer = Transformer(cfg.width, cfg.layers, cfg.heads, cfg.dtype, cfg.act)
+        self.ln_final = LayerNormF32(cfg.width)
+        self.text_projection = (nn.Parameter(torch.empty(cfg.width, cfg.embed_dim))
+                                if cfg.embed_dim else None)
+
+    def encode(self, tokens, hidden_layer: int):
+        return _text_forward(self, self.cfg.dtype, tokens, hidden_layer)

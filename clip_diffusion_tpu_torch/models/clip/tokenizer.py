@@ -181,13 +181,15 @@ def tokenize(
     context_length: int = CONTEXT_LENGTH,
     truncate: bool = True,
     tokenizer=None,
+    pad: int = 0,
 ) -> np.ndarray:
     """Texts -> (N, context_length) int32 ids, SOT/EOT-bracketed and
-    zero-padded; `tokenizer` defaults to `get_tokenizer()`."""
+    padded with `pad` (0; Hugging Face's CLIP tokenizer pads with EOT);
+    `tokenizer` defaults to `get_tokenizer()`."""
     if isinstance(texts, str):
         texts = [texts]
     tok = tokenizer or get_tokenizer()
-    out = np.zeros((len(texts), context_length), dtype=np.int32)
+    out = np.full((len(texts), context_length), pad, dtype=np.int32)
     for i, text in enumerate(texts):
         ids = [SOT] + tok.encode(text) + [EOT]
         if len(ids) > context_length:

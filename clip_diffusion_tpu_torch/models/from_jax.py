@@ -238,6 +238,25 @@ def ldm_unet_rule(key: str) -> Tuple[Path, str]:
     return unet_rule(key)
 
 
+def sdxl_unet_rule(key: str) -> Tuple[Path, str]:
+    """Port SDXL UNet key (sgm names) -> the path a flax twin would give it
+    (the JAX package has no SDXL; the zoo's init reads the shapes): the
+    label embedding's two dense layers and the SpatialTransformers' linear
+    `proj_in`/`proj_out`; every other key as in `ldm_unet_rule`."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] == "label_emb":  # label_emb.0.{0,2}
+        name, kind = _leaf(leaf, "dense")
+        return (f"label_emb_{parts[2]}", name), kind
+    if parts[0] in ("input_blocks", "output_blocks", "middle_block") and \
+            parts[-2] in ("proj_in", "proj_out"):
+        block = (f"middle_block_{parts[1]}" if parts[0] == "middle_block"
+                 else f"{parts[0]}_{parts[1]}_{parts[2]}")
+        name, kind = _leaf(leaf, "dense")
+        return (block, parts[-2], name), kind
+    return ldm_unet_rule(key)
+
+
 def vq_rule(key: str) -> Tuple[Path, str]:
     """Port VQ key (taming names) -> JAX path."""
     parts = key.split(".")

@@ -12,6 +12,13 @@ follow taming's (`encoder.down.L.block.I.conv1.weight`,
 Taming's downsample pads (0, 1) on H and W before a VALID stride-2 conv;
 the attention flattens (h, w) row-major and divides float32 logits by
 sqrt(c) in float32, as the JAX package does.
+
+`KLModel` is Stable Diffusion XL's first stage (sgm `AutoencoderKL`, the
+JAX package has none): the same `Encoder` and `Decoder` (`KLConfig`: ch
+128, ch_mult (1,2,4,4), attention only in the mid block), the encoder
+giving mean and log-variance (`double_z`), `quant_conv` 8 -> 8 and
+`post_quant_conv` 4 -> 4, no codebook.  `encode` returns the posterior
+mean times `scale_factor` (0.13025); `decode` divides by it first.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ class VQConfig:
     resolution: int = 256
     out_ch: int = 3
     dtype: torch.dtype = torch.float32
+    double_z: bool = False  # the encoder's conv_out gives 2 x z_channels (mean, log-variance)
 
     @staticmethod
     def tiny() -> "VQConfig":
@@ -143,7 +151,8 @@ class Encoder(nn.Module):
             self.down.append(_level(blocks, attns, resample))
         self.mid = _mid(ch, dt)
         self.norm_out = GroupNorm32(ch, eps=1e-6)
-        self.conv_out = Conv2d(ch, c.z_channels, 3, padding=1, dtype=dt)
+        z_out = 2 * c.z_channels if c.double_z else c.z_channels
+        self.conv_out = Conv2d(ch, z_out, 3, padding=1, dtype=dt)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -232,3 +241,48 @@ class VQModel(nn.Module):
     def decode(self, z):
         h = self.post_quant_conv(self.quantize_latents(z).permute(0, 3, 1, 2).contiguous())
         return self.decoder(h).permute(0, 2, 3, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class KLConfig:
+    """SDXL's KL-f8 first stage (sgm `sd_xl_base.yaml` first_stage_config)."""
+
+    z_channels: int = 4
+    embed_dim: int = 4
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    attn_resolutions: Tuple[int, ...] = ()
+    resolution: int = 256
+    out_ch: int = 3
+    dtype: torch.dtype = torch.float32
+    double_z: bool = True
+    scale_factor: float = 0.13025
+
+    @staticmethod
+    def tiny() -> "KLConfig":
+        return KLConfig(ch=16, ch_mult=(1, 2), num_res_blocks=1, resolution=32)
+
+
+class KLModel(nn.Module):
+    """encode: NHWC pixels in [-1, 1] -> NHWC latents, the posterior mean
+    times `scale_factor`; decode: NHWC latents -> NHWC pixels, divided by
+    `scale_factor` first."""
+
+    def __init__(self, cfg: KLConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.decoder = Decoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.embed_dim, 1, dtype=cfg.dtype)
+        self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1, dtype=cfg.dtype)
+
+    def encode(self, x):
+        moments = self.quant_conv(self.encoder(x.to(self.cfg.dtype).permute(0, 3, 1, 2)
+                                               .contiguous()))
+        mean = moments[:, : self.cfg.embed_dim]
+        return (mean * self.cfg.scale_factor).permute(0, 2, 3, 1)
+
+    def decode(self, z):
+        z = (z.to(self.cfg.dtype) / self.cfg.scale_factor).permute(0, 3, 1, 2).contiguous()
+        return self.decoder(self.post_quant_conv(z)).permute(0, 2, 3, 1)

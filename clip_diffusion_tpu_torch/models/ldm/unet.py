@@ -4,13 +4,20 @@ Counterpart of `clip_diffusion_tpu.models.ldm.unet`: CompVis LDM
 txt2img-f8-large's UNet (model_channels 320, channel mult (1,2,4,4), 2 res
 blocks, a SpatialTransformer of depth 1 with 8 heads and context dim 1280
 at downsample factors {1,2,4}) over 4-channel f8 latents, about 872M
-parameters.
+parameters.  The same module builds Stable Diffusion XL base 1.0's UNet
+(`LDMUNetConfig.sdxl()`, sgm's `sd_xl_base.yaml`, about 2.57B
+parameters; the JAX package has no counterpart): a transformer depth per
+level (the middle block takes the last level's), heads of a fixed width
+(`num_head_channels`), linear `proj_in`/`proj_out` over the tokens, and a
+label embedding of a conditioning vector `y` added to the time embedding
+(`label_emb.0.0`, SiLU, `label_emb.0.2`).
 
 The ADM building blocks (`ResBlock` without scale-shift norm, `Downsample`
 and `Upsample` with convs, `GroupNorm32`, `timestep_embedding`) come from
 `models/unet.py`.  The boundary keeps the JAX layout: `LDMUNet(x, t,
 context)` takes NHWC latents, (B,) timesteps and (B, S, D) context and
-returns NHWC float32.  State-dict keys follow the CompVis checkpoint
+returns NHWC float32 (SDXL also takes the (B, adm_in_channels) vector
+`y`).  State-dict keys follow the CompVis checkpoint
 (`input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight`, ...).
 Numerics kept from the JAX package:
 
@@ -19,7 +26,9 @@ Numerics kept from the JAX package:
   SpatialTransformer's `norm`; LayerNorms in float32, cast back;
 * cross-attention logits in the compute dtype, divided by sqrt(dim_head)
   rounded to that dtype (6.3125, 8.9375 and 12.625 in bfloat16 for the
-  full model's 40, 80 and 160), softmax in float32 cast back;
+  full model's 40, 80 and 160; 8 for SDXL's 64), softmax in float32 cast
+  back, all in the one function `attention`, whose `attention.calls`
+  counts its calls (a replayed graph adds the calls its capture made);
 * GEGLU's gate through the exact (erf) GELU in float32.
 
 Nothing on the latent path takes a gradient, so there is no remat.
@@ -33,8 +42,10 @@ dtypes and device on its first call (two warm-up forwards on a side
 stream, then the capture); at most `GRAPHS_PER_MODULE` are kept, the
 least recently used dropped first, all in one memory pool of the module.
 One caller at a time per module: the replay reads the module's static
-input buffers.  The forward must stay capturable: no host syncs and no
-host-to-device copies in `_forward`.
+input buffers.  The capture's own forwards leave `attention.calls` as it
+was; each replay adds the attention calls of one forward.  The forward
+must stay capturable: no host syncs and no host-to-device copies in
+`_forward`.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -72,14 +83,50 @@ class LDMUNetConfig:
     attention_ds: Tuple[int, ...] = (1, 2, 4)  # attention_resolutions [4,2,1]
     channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_heads: int = 8
-    transformer_depth: int = 1
+    transformer_depth: Union[int, Tuple[int, ...]] = 1  # one for all levels, or one a level
     context_dim: int = 1280
     dtype: torch.dtype = torch.bfloat16
+    num_head_channels: int = -1  # > 0: heads = channels // this, in place of num_heads
+    use_linear_in_transformer: bool = False  # proj_in/proj_out as Linear over the tokens
+    adm_in_channels: Optional[int] = None  # width of the vector y; None: no label embedding
 
     @staticmethod
     def tiny() -> "LDMUNetConfig":
         return LDMUNetConfig(model_channels=32, channel_mult=(1, 2), attention_ds=(1, 2),
                              num_heads=2, context_dim=16, dtype=torch.float32)
+
+    @staticmethod
+    def sdxl() -> "LDMUNetConfig":
+        """SDXL base 1.0 (sgm `sd_xl_base.yaml`): attention_resolutions
+        [4, 2], transformer_depth [1, 2, 10], 64-wide heads, context 2048
+        (CLIP ViT-L/14 768 + OpenCLIP ViT-bigG/14 1280), vector 2816."""
+        return LDMUNetConfig(model_channels=320, channel_mult=(1, 2, 4), attention_ds=(2, 4),
+                             num_heads=-1, num_head_channels=64, transformer_depth=(1, 2, 10),
+                             context_dim=2048, use_linear_in_transformer=True,
+                             adm_in_channels=2816)
+
+    def depth(self, level: int) -> int:
+        """Transformer blocks of a SpatialTransformer at `level`; the middle
+        block takes the last level's."""
+        d = self.transformer_depth
+        return d if isinstance(d, int) else d[level]
+
+    def heads(self, channels: int) -> int:
+        return channels // self.num_head_channels if self.num_head_channels > 0 else self.num_heads
+
+
+def attention(q, k, v, scale: float, dtype):
+    """softmax(q k^T / scale) v over (b, h, t, d) heads: the logits in the
+    compute dtype divided by `scale` (sqrt(d) rounded to that dtype), the
+    softmax in float32 cast back to `dtype`.  Every call adds one to
+    `attention.calls`."""
+    attention.calls += 1
+    logits = torch.matmul(q, k.transpose(-1, -2)) / scale  # (b, h, t, s)
+    attn = torch.softmax(logits.to(torch.float32), dim=-1).to(dtype)
+    return torch.matmul(attn, v)
+
+
+attention.calls = 0  # calls of every LDM UNet, replays included, for run reports
 
 
 class CrossAttention(nn.Module):
@@ -105,9 +152,7 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).reshape(b, t, h, d).transpose(1, 2)
         k = self.to_k(context).reshape(b, -1, h, d).transpose(1, 2)
         v = self.to_v(context).reshape(b, -1, h, d).transpose(1, 2)
-        logits = torch.matmul(q, k.transpose(-1, -2)) / self.scale  # (b, h, t, s)
-        attn = torch.softmax(logits.to(torch.float32), dim=-1).to(self.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, h * d)
+        out = attention(q, k, v, self.scale, self.dtype).transpose(1, 2).reshape(b, t, h * d)
         return self.to_out[0](out)
 
 
@@ -150,27 +195,36 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm, 1x1 conv in, transformer blocks over the (h, w) tokens in
-    row-major order, 1x1 conv out, residual."""
+    """GroupNorm, projection in, transformer blocks over the (h, w) tokens
+    in row-major order, projection out, residual.  The projections are 1x1
+    convs, or with `linear` Linear layers over the tokens (sgm's
+    `use_linear`)."""
 
     def __init__(self, channels: int, heads: int, depth: int, context_dim: int,
-                 dtype=torch.float32):
+                 dtype=torch.float32, linear: bool = False):
         super().__init__()
+        self.linear = linear
+        proj = ((lambda: Linear(channels, channels, dtype=dtype)) if linear else
+                (lambda: Conv2d(channels, channels, 1, dtype=dtype)))
         self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = Conv2d(channels, channels, 1, dtype=dtype)
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(channels, heads, channels // heads, context_dim, dtype)
             for _ in range(depth)
         ])
-        self.proj_out = Conv2d(channels, channels, 1, dtype=dtype)
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, h, w = x.shape
-        y = self.proj_in(self.norm(x)).flatten(2).transpose(1, 2)  # (b, hw, c)
+        if self.linear:
+            y = self.proj_in(self.norm(x).flatten(2).transpose(1, 2))  # (b, hw, c)
+        else:
+            y = self.proj_in(self.norm(x)).flatten(2).transpose(1, 2)
         for block in self.transformer_blocks:
             y = block(y, context)
-        y = y.transpose(1, 2).reshape(b, c, h, w)
-        return x + self.proj_out(y)
+        if self.linear:
+            return x + self.proj_out(y).transpose(1, 2).reshape(b, c, h, w)
+        return x + self.proj_out(y.transpose(1, 2).reshape(b, c, h, w))
 
 
 def _drop_graphs(unet, _incompatible_keys=None):
@@ -179,9 +233,10 @@ def _drop_graphs(unet, _incompatible_keys=None):
 
 
 class LDMUNet(nn.Module):
-    """eps-model over latents: (x NHWC, t (B,), context (B, S, D)) -> NHWC
-    float32, replayed from a CUDA graph on the card without grad (see the
-    module docstring); `_forward` is the eager forward."""
+    """eps-model over latents: (x NHWC, t (B,), context (B, S, D)[, y (B,
+    adm_in_channels)]) -> NHWC float32, replayed from a CUDA graph on the
+    card without grad (see the module docstring); `_forward` is the eager
+    forward."""
 
     def __init__(self, config: LDMUNetConfig):
         super().__init__()
@@ -192,13 +247,18 @@ class LDMUNet(nn.Module):
         self.time_embed = nn.ModuleList([
             Linear(mc, time_dim, dtype=dt), nn.SiLU(), Linear(time_dim, time_dim, dtype=dt),
         ])
+        if cfg.adm_in_channels is not None:  # sgm's nn.Sequential(nn.Sequential(...))
+            self.label_emb = nn.ModuleList([nn.ModuleList([
+                Linear(cfg.adm_in_channels, time_dim, dtype=dt), nn.SiLU(),
+                Linear(time_dim, time_dim, dtype=dt),
+            ])])
 
         def res(ch_in, ch_out):
             return ResBlock(ch_in, time_dim, ch_out, use_scale_shift_norm=False, dtype=dt)
 
-        def attn(ch):
-            return SpatialTransformer(ch, cfg.num_heads, cfg.transformer_depth,
-                                      cfg.context_dim, dt)
+        def attn(ch, level):
+            return SpatialTransformer(ch, cfg.heads(ch), cfg.depth(level), cfg.context_dim, dt,
+                                      cfg.use_linear_in_transformer)
 
         self.input_blocks = nn.ModuleList([
             nn.ModuleList([Conv2d(cfg.in_channels, mc, 3, padding=1, dtype=dt)])
@@ -210,7 +270,7 @@ class LDMUNet(nn.Module):
                 layers = [res(ch, mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_ds:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, level))
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
@@ -218,7 +278,8 @@ class LDMUNet(nn.Module):
                 ds *= 2
                 chans.append(ch)
 
-        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch), res(ch, ch)])
+        last = len(cfg.channel_mult) - 1
+        self.middle_block = nn.ModuleList([res(ch, ch), attn(ch, last), res(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
@@ -226,7 +287,7 @@ class LDMUNet(nn.Module):
                 layers = [res(ch + chans.pop(), mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_ds:
-                    layers.append(attn(ch))
+                    layers.append(attn(ch, level))
                 if level and i == cfg.num_res_blocks:
                     layers.append(Upsample(ch, dt))
                     ds //= 2
@@ -255,8 +316,8 @@ class LDMUNet(nn.Module):
             return layer(h, context)
         return layer(h)
 
-    def forward(self, x, timesteps, context):
-        args = (x, timesteps, context)
+    def forward(self, x, timesteps, context, y=None):
+        args = (x, timesteps, context) if y is None else (x, timesteps, context, y)
         if torch.is_grad_enabled() or not all(a.is_cuda for a in args):
             return self._forward(*args)
         key = tuple((tuple(a.shape), a.dtype, a.device) for a in args)
@@ -266,19 +327,22 @@ class LDMUNet(nn.Module):
             self._graphs[key] = self._capture(args)
             if len(self._graphs) > GRAPHS_PER_MODULE:
                 self._graphs.popitem(last=False)
-        graph, inputs, out = self._graphs[key]
+        graph, inputs, out, attention_calls = self._graphs[key]
         for buf, a in zip(inputs, args):
             buf.copy_(a)
         with annotate("ldm.unet.replay"):
             graph.replay()
+        attention.calls += attention_calls
         # the static output is overwritten by the next replay
         return out.clone()
 
     def _capture(self, args):
         """A CUDA graph of `_forward` on static copies of `args` -> (graph,
-        static inputs, static output).  Outside inference mode, so that the
-        buffers also take inputs under plain `no_grad`."""
+        static inputs, static output, attention calls of one forward).
+        Outside inference mode, so that the buffers also take inputs under
+        plain `no_grad`.  `attention.calls` reads after as before."""
         device = args[0].device
+        calls_before = attention.calls
         with torch.cuda.device(device), torch.inference_mode(False), torch.no_grad():
             inputs = tuple(torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
                            for a in args)
@@ -292,15 +356,21 @@ class LDMUNet(nn.Module):
                     self._forward(*inputs)
             torch.cuda.current_stream(device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
+            calls_captured = attention.calls
             with torch.cuda.graph(graph, pool=pool, stream=stream):
                 out = self._forward(*inputs)
-        return graph, inputs, out
+        calls = attention.calls - calls_captured
+        attention.calls = calls_before
+        return graph, inputs, out, calls
 
-    def _forward(self, x, timesteps, context):
+    def _forward(self, x, timesteps, context, y=None):
         cfg = self.config
         emb = timestep_embedding(timesteps, cfg.model_channels)
         emb = self.time_embed[0](emb.to(cfg.dtype))
         emb = self.time_embed[2](F.silu(emb))
+        if cfg.adm_in_channels is not None:
+            label = self.label_emb[0]
+            emb = emb + label[2](F.silu(label[0](y.to(cfg.dtype))))
         context = context.to(cfg.dtype)
 
         h = x.to(cfg.dtype).permute(0, 3, 1, 2).contiguous()  # NHWC -> NCHW

@@ -11,6 +11,8 @@ the VQ-f8 first stage.
   The UNet takes t as float32, not rescaled.
 * CFG runs one UNet forward per step at batch 2B, interleaved per image
   (uncond, cond, uncond, cond, ...): eps = eps_u + g * (eps_c - eps_u).
+* Conditioning is a context (B, S, D), or for a UNet with a label
+  embedding (SDXL) a pair (context, vector (B, V)); CFG interleaves both.
 * PLMS forces eta 0 and feeds the multistep eps into the DDIM formula.
 * Inpainting (mask 1 keeps the init latent): before every step the known
   region is re-noised from the init latent to the step's level and pasted.
@@ -72,8 +74,9 @@ def ldm_ddim_tables(steps: int, eta: float, device=None) -> Dict[str, torch.Tens
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class LatentPipeline:
-    """unet(x NHWC, t (B,) float32, context (B, S, D)) -> eps NHWC float32;
-    decode(latents NHWC) -> pixels in [-1, 1]; encode(pixels) -> latents."""
+    """unet(x NHWC, t (B,) float32, context (B, S, D)[, vector (B, V)]) ->
+    eps NHWC float32; decode(latents NHWC) -> pixels in [-1, 1];
+    encode(pixels) -> latents."""
 
     unet: Callable
     decode: Optional[Callable] = None
@@ -87,12 +90,19 @@ def _interleave(a, b):
     return torch.stack([a, b], dim=1).reshape((2 * a.shape[0],) + tuple(a.shape[1:]))
 
 
+def _parts(cond) -> tuple:
+    """Conditioning as the UNet's arguments after t: (context,) or
+    (context, vector)."""
+    return (cond,) if torch.is_tensor(cond) else tuple(cond)
+
+
 def _model_eps(pipe: LatentPipeline, x, t_val, ctx_c, ctx_u, guidance_scale: float):
     b = x.shape[0]
     t = torch.full((b,), t_val, dtype=torch.float32, device=x.device)
     if ctx_u is None:
-        return pipe.unet(x, t, ctx_c)
-    eps2 = pipe.unet(_interleave(x, x), _interleave(t, t), _interleave(ctx_u, ctx_c))
+        return pipe.unet(x, t, *_parts(ctx_c))
+    cond = (_interleave(u, c) for u, c in zip(_parts(ctx_u), _parts(ctx_c)))
+    eps2 = pipe.unet(_interleave(x, x), _interleave(t, t), *cond)
     eps2 = eps2.reshape((b, 2) + tuple(eps2.shape[1:]))
     eps_uc, eps_c = eps2[:, 0], eps2[:, 1]
     return eps_uc + guidance_scale * (eps_c - eps_uc)
@@ -119,7 +129,7 @@ def latent_sample(
 ):
     """Run the CFG latent diffusion loop -> final latents (B, h, w, C)
     float32.  `context_cond`/`context_uncond`: (B, 77, D) text
-    conditioning; CFG is off when `context_uncond` is None or
+    conditioning, or (context, vector) pairs; CFG is off when `context_uncond` is None or
     `guidance_scale` <= 0 (one forward per step).  `x0_latent` (B, h, w, C)
     with `mask` (B, h, w, 1) inpaints.
 
@@ -133,7 +143,7 @@ def latent_sample(
         raise ValueError(f"unknown sample mode {mode!r}")
     if mode == "plms":
         eta = 0.0
-    device = context_cond.device
+    device = _parts(context_cond)[0].device
     tables = ldm_ddim_tables(steps, eta, device)
     timesteps = tables["timesteps"].tolist()
     shape = (batch_size, height // pipe.downsample, width // pipe.downsample,

@@ -234,13 +234,15 @@ def latent_diffusion_sample(
     `upscaler(images01)` takes a (1, H, W, 3) tensor in [0, 1] on `device`
     and returns the upscaled one (e.g. `functools.partial(models.esrgan.
     upscale, zoo.build_esrgan())`); its outputs go to latent/sr/.
-    `pipe` and `text_encode` (from `zoo.build_latent_pipeline`, on
-    `device`) are given together or not at all: without them the default
-    stack is built once per device (`default_latent_stack`).  The modules
+    `pipe` and `text_encode` (from `zoo.build_latent_pipeline`, or
+    `zoo.build_sdxl_pipeline` for SDXL base 1.0, on `device`) are given
+    together or not at all: without them the default stack is built once
+    per device (`default_latent_stack`).  The modules
     carry their weights, so there is no `latent_params` argument.
 
     While a profile collects (`utils.profiling`), the request is a
-    `latent.request` span; inside it `latent.decode` (the VQ decode and
+    `latent.request` span; inside it `latent.text` (each text encoding:
+    the prompt's, the empty prompt's), `latent.decode` (the VQ decode and
     its copy to the host), `latent.png` (each PNG write: the images, the
     grid, the upscales) and `latent.upscale` (each upscaler call and its
     copy to the host)."""
@@ -261,10 +263,12 @@ def latent_diffusion_sample(
         if not seed:
             seed = random_seed()
 
-        ctx_cond = text_encode([p.text] * num_batches)
+        with annotate("latent.text"):
+            ctx_cond = text_encode([p.text] * num_batches)
         ctx_uncond = None
         if latent_diffusion_guidance_scale > 0:
-            ctx_uncond = text_encode([""] * num_batches)
+            with annotate("latent.text"):
+                ctx_uncond = text_encode([""] * num_batches)
 
         x0_latent = None
         mask = None

@@ -6,8 +6,12 @@ CLIP perceptors by name, build the ADM UNet, the aesthetic heads and LPIPS,
 embed the prompt per perceptor.  For the latent request: the LDM UNet
 (seed, `param_dtype`), the VQ-f8 first stage (seed + 1, float32) and the
 BERT encoder (seed + 2, `param_dtype`), and Real-ESRGAN (seed 2000,
-float32).  For the text front end: the sentence-T5 encoder (seed, float32)
-and MarianMT (`init_marian`).
+float32).  For Stable Diffusion XL base 1.0 through the same latent
+request: its UNet (seed), the CLIP ViT-L/14 (seed + 1) and OpenCLIP
+ViT-bigG/14 (seed + 2) text towers in `param_dtype`, and the KL-f8 first
+stage (seed + 3, float32), random init only (no reader of SDXL's release
+file yet).  For the text front end: the sentence-T5 encoder (seed,
+float32) and MarianMT (`init_marian`).
 
 Every builder goes through one gate, `load_or_init`.  The weights are the
 public torch release files themselves, one per slot under the JAX
@@ -50,11 +54,22 @@ from clip_diffusion_tpu_torch.models.aesthetic import (
     convert_aesthetic,
     make_aesthetic_predictor,
 )
-from clip_diffusion_tpu_torch.models.clip.model import CLIP_PRESETS, CLIPModel
-from clip_diffusion_tpu_torch.models.clip.tokenizer import default_bpe_path, get_tokenizer, tokenize
+from clip_diffusion_tpu_torch.models.clip.model import (
+    CLIP_PRESETS,
+    CLIP_TEXT_PRESETS,
+    CLIPModel,
+    CLIPTextConfig,
+    CLIPTextModel,
+)
+from clip_diffusion_tpu_torch.models.clip.tokenizer import (
+    EOT,
+    default_bpe_path,
+    get_tokenizer,
+    tokenize,
+)
 from clip_diffusion_tpu_torch.models.convert import convert_clip, convert_unet
 from clip_diffusion_tpu_torch.models.esrgan import RRDBNet, convert_rrdbnet
-from clip_diffusion_tpu_torch.models.ldm.autoencoder import VQConfig, VQModel
+from clip_diffusion_tpu_torch.models.ldm.autoencoder import KLConfig, KLModel, VQConfig, VQModel
 from clip_diffusion_tpu_torch.models.ldm.bert import BERTConfig, BERTEmbedder, bert_tokenize
 from clip_diffusion_tpu_torch.models.ldm.convert import (
     convert_bert,
@@ -66,7 +81,7 @@ from clip_diffusion_tpu_torch.models.ldm.unet import LDMUNet, LDMUNetConfig
 from clip_diffusion_tpu_torch.models.lpips import LPIPS, convert_lpips
 from clip_diffusion_tpu_torch.models.marian import MarianConfig, MarianMT, convert_marian
 from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, convert_sentence_t5
-from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel
+from clip_diffusion_tpu_torch.models.unet import UNetConfig, UNetModel, timestep_embedding
 from clip_diffusion_tpu_torch.pipeline.guided import GuidedPipeline, Perceptor
 from clip_diffusion_tpu_torch.pipeline.latent import LatentPipeline
 from clip_diffusion_tpu_torch.utils.checkpoint import load_validated
@@ -430,6 +445,117 @@ def build_latent_pipeline(models: LatentModels) -> Tuple[LatentPipeline, BertTex
         downsample=2 ** (len(models.vq.cfg.ch_mult) - 1),
     )
     return pipe, BertTextEncoder(models.bert)
+
+
+@dataclasses.dataclass(frozen=True)
+class SDXLConfig:
+    """Stable Diffusion XL base 1.0 (sgm `configs/inference/sd_xl_base.yaml`):
+    the UNet, the two text towers with the block whose hidden state the
+    context takes (CLIP ViT-L/14 after 11 of 12 blocks, as Hugging Face's
+    `hidden_states[11]`; bigG after 31 of 32, "penultimate"), the KL-f8
+    first stage and the width of each size number's embedding."""
+
+    unet: LDMUNetConfig = dataclasses.field(default_factory=LDMUNetConfig.sdxl)
+    clip_l: CLIPTextConfig = dataclasses.replace(CLIP_TEXT_PRESETS["ViT-L/14"], embed_dim=0)
+    clip_g: CLIPTextConfig = CLIP_TEXT_PRESETS["ViT-bigG/14"]
+    vae: KLConfig = KLConfig()
+    clip_l_layer: int = 11
+    clip_g_layer: int = 31
+    size_embed_dim: int = 256
+
+    @staticmethod
+    def tiny() -> "SDXLConfig":
+        """Test widths: context 16 + 24, vector 24 + 6 x 8."""
+        unet = LDMUNetConfig(model_channels=32, channel_mult=(1, 2, 4), attention_ds=(2, 4),
+                             num_heads=-1, num_head_channels=16, transformer_depth=(0, 1, 2),
+                             context_dim=40, use_linear_in_transformer=True,
+                             adm_in_channels=72, dtype=torch.float32)
+        return SDXLConfig(unet=unet, clip_l=CLIPTextConfig(16, 2, 3),
+                          clip_g=CLIPTextConfig(24, 2, 3, 24, act="gelu"),
+                          vae=KLConfig.tiny(), clip_l_layer=2, clip_g_layer=2,
+                          size_embed_dim=8)
+
+
+@dataclasses.dataclass
+class SDXLModels:
+    """The SDXL stack: UNet, the two text towers, the KL-f8 first stage."""
+
+    config: SDXLConfig
+    unet: LDMUNet
+    clip_l: CLIPTextModel
+    clip_g: CLIPTextModel
+    vae: KLModel
+
+
+def build_sdxl_models(param_dtype=torch.bfloat16, seed: int = 0,
+                      config: Optional[SDXLConfig] = None, device=None) -> SDXLModels:
+    """SDXL base 1.0 on `device` (default `cuda`): the UNet (seed) and both
+    text towers (seed + 1, seed + 2) in `param_dtype`, the KL-f8 first
+    stage (seed + 3) in float32, each randomly initialized by the zoo's
+    rule (recorded as such in `weights_provenance`).  `config` defaults to
+    the published widths."""
+    device = resolve_device(device)
+    c = config or SDXLConfig()
+
+    def init(name, build, rule, s, dtype):
+        _PROVENANCE["random_init"].add(name)
+        return _materialize(build, rule, s, dtype, device)
+
+    unet = init("sdxl_unet", lambda: LDMUNet(dataclasses.replace(c.unet, dtype=param_dtype)),
+                from_jax.sdxl_unet_rule, seed, param_dtype)
+    clip_l = init("sdxl_clip_l",
+                  lambda: CLIPTextModel(dataclasses.replace(c.clip_l, dtype=param_dtype)),
+                  from_jax.clip_rule, seed + 1, param_dtype)
+    clip_g = init("sdxl_clip_g",
+                  lambda: CLIPTextModel(dataclasses.replace(c.clip_g, dtype=param_dtype)),
+                  from_jax.clip_rule, seed + 2, param_dtype)
+    vae = init("sdxl_vae", lambda: KLModel(c.vae), from_jax.vq_rule, seed + 3, torch.float32)
+    return SDXLModels(c, unet, clip_l, clip_g, vae)
+
+
+class SDXLTextEncoder:
+    """texts -> (context (N, 77, D_l + D_g), vector (N, D_g + 6 x e))
+    float32, sgm's GeneralConditioner: the context is CLIP ViT-L/14's
+    hidden state (EOT-padded tokens, as Hugging Face's tokenizer pads)
+    beside bigG's (zero-padded, as OpenCLIP's), neither through
+    `ln_final`; the vector is bigG's pooled projection, then the
+    sinusoidal embeddings (cos, sin; width e) of original_size (h, w),
+    crop_coords_top_left (top, left) and target_size (h, w)."""
+
+    def __init__(self, models: SDXLModels, original_size=(1024, 1024), crop_coords=(0, 0),
+                 target_size=(1024, 1024)):
+        self.models = models
+        self.sizes = tuple(original_size) + tuple(crop_coords) + tuple(target_size)
+
+    @torch.inference_mode()
+    def __call__(self, texts):
+        m, c = self.models, self.models.config
+        device = m.clip_g.token_embedding.weight.device
+
+        def tokens(pad):
+            return torch.from_numpy(tokenize(texts, pad=pad)).to(device=device, dtype=torch.long)
+
+        h_l, _ = m.clip_l.encode(tokens(EOT), c.clip_l_layer)
+        h_g, pooled = m.clip_g.encode(tokens(0), c.clip_g_layer)
+        context = torch.cat([h_l.float(), h_g.float()], dim=-1)
+        sizes = torch.tensor(self.sizes, dtype=torch.float32, device=device)
+        emb = timestep_embedding(sizes, c.size_embed_dim).reshape(1, -1)
+        return context, torch.cat([pooled, emb.expand(len(texts), -1)], dim=-1)
+
+
+def build_sdxl_pipeline(models: SDXLModels, original_size=(1024, 1024), crop_coords=(0, 0),
+                        target_size=(1024, 1024)) -> Tuple[LatentPipeline, SDXLTextEncoder]:
+    """(LatentPipeline, text_encode) over the SDXL stack, for
+    `sample.latent_diffusion_sample(pipe=, text_encode=)`; the size
+    conditioning is sgm's for a 1024 x 1024 image by default."""
+    pipe = LatentPipeline(
+        unet=models.unet,
+        decode=models.vae.decode,
+        encode=models.vae.encode,
+        latent_channels=models.vae.cfg.embed_dim,
+        downsample=2 ** (len(models.vae.cfg.ch_mult) - 1),
+    )
+    return pipe, SDXLTextEncoder(models, original_size, crop_coords, target_size)
 
 
 def build_esrgan(scale: int = 4, seed: int = 2000, tiny: bool = False,

@@ -220,7 +220,8 @@ def tiny_latent():
 
 
 def test_latent_request_spans(tiny_latent, tmp_path):
-    """One `latent.request` holding one `latent.step` per CFG step, one
+    """One `latent.request` holding two `latent.text` (the prompt's and the
+    empty prompt's encodings), one `latent.step` per CFG step, one
     `latent.decode` per iteration, a `latent.png` per iteration, one for
     the grid and one per upscale, and one `latent.upscale` per image."""
     pipe, text_encode, esrgan = tiny_latent
@@ -232,8 +233,8 @@ def test_latent_request_spans(tiny_latent, tmp_path):
             device="cpu")
     spans = profiling.spans()
     assert Counter(s.name for s in spans) == {
-        "latent.request": 1, "latent.step": 6, "latent.decode": 2, "latent.png": 2 + 1 + 4,
-        "latent.upscale": 4}
+        "latent.request": 1, "latent.text": 2, "latent.step": 6, "latent.decode": 2,
+        "latent.png": 2 + 1 + 4, "latent.upscale": 4}
     by_id = {s.id: s for s in spans}
     (root,) = [s for s in spans if s.name == "latent.request"]
     for s in spans:
