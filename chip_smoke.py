@@ -12,7 +12,13 @@ Phases, each announced on its own line; any failure exits non-zero:
    per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main path's shapes (and against the library call where one exists),
-   with CUDA-event timings and the bound the card could reach;
+   with CUDA-event timings and the bound the card could reach; the LDM
+   UNet's fused attention (csrc/ldm_attention.cu) at every shape the SDXL
+   and txt2img-f8-large UNets send it, it and the plain body each against
+   a float32 evaluation (the kernel's error no larger), its time as called
+   and on the device, its bound (FLOPs at 989 TFLOP/s, exponentials at the
+   MUFU rate), the plain body's time and scaled_dot_product_attention's as
+   the library yardstick (the port never calls it);
 4. reference: two tiny pipelines on the card against the same pipelines on
    the CPU, same weights and same draws: the DDIM one with a ViT tower, and
    one with a ResNet tower, an aesthetic head, LPIPS, an init image and
@@ -126,20 +132,25 @@ Phases, each announced on its own line; any failure exits non-zero:
     128 x 4, context 6 x 77 x 2048, vector 6 x 2816): the replayed CUDA
     graph equals the eager forward bit for bit, twice; one replayed and
     one eager forward's device ms under torch.profiler, the attention
-    calls of a forward (140: 70 transformer blocks, self and cross) and
-    the memory the capture reserved.
+    calls and fused kernel launches of a replayed forward (140 each: 70
+    transformer blocks, self and cross) and the memory the capture
+    reserved.
 
 On every path the kernel launch counts are zeroed just before it runs and
 read just after: on the guided paths (the auto-modifier request, the
 score suite's samples, the server's requests, batch serving, the ensemble,
 the resumed and the segmented trajectories, profile_step and the traced
 step included) mode B of the quantile kernel once per executed step (per
-rank), mode A never; on the latent paths (the chunked ones included) and
-under a past deadline neither mode.
+rank), mode A never, the fused attention never; on the latent paths (the
+latent request, inpainting, the latent profile, serve_latent_batch and
+the chunked latent dispatch) neither quantile mode and the fused attention
+32 times each UNet forward they make (16 transformer blocks, self and
+cross); under a past deadline none.
 
 Then one JSON line {"kernels": [...]} (each kernel's launches on the main
-path, and on every path under "launches_by_path"), the nvidia-smi line again, and as
-the last line {"ok": true, "device": {...}}.  TF32 is off throughout, so
+path, and on every path under "launches_by_path"; the fused attention's
+on every path and in phase 23), the nvidia-smi line again, and as the
+last line {"ok": true, "device": {...}}.  TF32 is off throughout, so
 float32 comparisons run in full float32.  Without a CUDA device the script
 exits non-zero and prints no result.
 """
@@ -154,6 +165,7 @@ import dataclasses
 import glob
 import io
 import json
+import math
 import os
 import base64
 import socket
@@ -263,6 +275,9 @@ PROMPT = "A lighthouse on a cliff at golden hour, oil painting."
 # parameter counts of the full-width latent stack (the JAX package's eval_shape)
 LATENT_PARAMS = {"LDM UNet": 872300484, "VQ-f8": 67717295, "BERT": 542895360,
                  "RRDBNet x4": 16697987}
+# fused attention launches of one txt2img-f8-large UNet forward: 16
+# transformer blocks, self and cross
+LDM_ATTENTION_PER_FORWARD = 32
 # ... and of the text front end's towers at full width
 T5_PARAMS, MARIAN_PARAMS = 110218368, 77484009
 # the main path's UNet and three ViT towers, as release files
@@ -433,6 +448,89 @@ def check_quantile_kernel(dev, name: str) -> dict:
     }
 
 
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
+EXP_PER_S = 132 * 16 * 1.98e9  # MUFU ex2: 16 a clock on each of 132 SMs at 1.98 GHz
+
+
+def check_attention_kernel(dev) -> dict:
+    """The fused attention kernel (`ops.attention.fused_attention`, the
+    card's path of `models/ldm/unet.attention`) at every shape the LDM
+    configurations send: it and the plain body against a float32
+    evaluation of the same attention from the same bf16 inputs, the
+    kernel's error no larger than the plain body's (relative Frobenius
+    norm and largest element); the kernel within 2% (relative norm) and
+    0.1 (largest element) of the plain body, which rounds each logit to
+    bf16 before the softmax where the kernel does not.  Then
+    its times: as called (CUDA events), device us (torch.profiler), the
+    bound (FLOPs at 989 TFLOP/s, exps at the MUFU rate), the plain body
+    and `scaled_dot_product_attention` as the library yardstick (the port
+    never calls it)."""
+    import torch.nn.functional as F
+
+    from clip_diffusion_tpu_torch.ops.attention import (
+        LDM_SHAPES,
+        attention_float32,
+        errors,
+        fused_attention,
+        projection_heads,
+    )
+
+    gen = torch.Generator(dev).manual_seed(16)
+    rows, step_us = [], {"sdxl": 0.0, "latent": 0.0}
+    for label, b, h, t_q, t_k, d, per_step in LDM_SHAPES:
+        # q scaled so the logits spread about 2
+        q = projection_heads(gen, b, h, t_q, d, 2.0)
+        k, v = projection_heads(gen, b, h, t_k, d), projection_heads(gen, b, h, t_k, d)
+        scale = torch.tensor(math.sqrt(d), dtype=torch.bfloat16).item()
+        got = fused_attention(q, k, v, scale)
+        plain = ldm_unet.attention_plain(q, k, v, scale, torch.bfloat16)
+        ref = attention_float32(q, k, v, scale)
+        torch.cuda.synchronize()
+        if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"attention {label}: shape {tuple(got.shape)} or not finite")
+        k_rel, k_max = errors(got, ref)
+        p_rel, p_max = errors(plain, ref)
+        kp_rel, kp_max = errors(got, plain)
+        del ref
+        fn = lambda: fused_attention(q, k, v, scale)  # noqa: E731
+        iters = 20 if t_q * t_k > 2 ** 20 else 100
+        kernel_ms = cuda_ms(fn, iters=iters)
+        device_us, _ = device_us_per_call(fn, "ldm_softmax_attention")
+        plain_ms = cuda_ms(lambda: ldm_unet.attention_plain(q, k, v, scale, torch.bfloat16),
+                           iters=iters)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1 / scale),
+                             iters=iters)
+        flops = 4 * b * h * t_q * t_k * d
+        exps = b * h * t_q * t_k
+        nbytes = 2 * b * h * d * (2 * t_q + 2 * t_k)
+        bound_ms = max(flops / BF16_OPS_PER_S, exps / EXP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+        step_us[label.split()[0]] += device_us * per_step
+        row = dict(label=label, shape=[b, h, t_q, t_k, d], kernel_rel=k_rel, kernel_max=k_max,
+                   plain_rel=p_rel, plain_max=p_max, vs_plain_rel=kp_rel, vs_plain_max=kp_max,
+                   kernel_ms=kernel_ms, device_us=device_us, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms,
+                   tflops=flops / (device_us * 1e-6) / 1e12 if device_us else 0.0)
+        rows.append(row)
+        print(f"attention {label} {b}x{h}x{t_q}x{t_k}x{d}: vs float32 kernel rel {k_rel:.3e} "
+              f"max {k_max:.3e}, plain rel {p_rel:.3e} max {p_max:.3e}; kernel vs plain rel "
+              f"{kp_rel:.3e} max {kp_max:.3e}; as called {kernel_ms:.4f} ms, device "
+              f"{device_us:.1f} us ({row['tflops']:.1f} TFLOP/s), bound {bound_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms", flush=True)
+        del q, k, v, got, plain
+    print(f"attention: device ms a UNet step from these shapes: SDXL {step_us['sdxl'] / 1e3:.3f} "
+          f"(140 calls), latent {step_us['latent'] / 1e3:.3f} (32 calls)", flush=True)
+    worse = [r["label"] for r in rows
+             if r["kernel_rel"] > r["plain_rel"] or r["kernel_max"] > r["plain_max"]
+             or r["vs_plain_rel"] > 0.02 or r["vs_plain_max"] > 0.1]
+    if worse:
+        raise AssertionError(f"attention: kernel less precise than the plain body, or off it, "
+                             f"at {worse}")
+    torch.cuda.empty_cache()
+    return {"name": "ldm_softmax_attention", "route": "cuda",
+            "source": "clip_diffusion_tpu_torch/csrc/ldm_attention.cu", "replaces": None,
+            "shapes": rows, "step_ms": {k: v / 1e3 for k, v in step_us.items()}}
+
+
 class _MovedDraws(TorchDraws):
     """Draws made on the CPU generator, handed over on `device`: the same
     numbers for a CPU run and a GPU run."""
@@ -580,6 +678,7 @@ def _param_count(module) -> int:
 def _zero_launches() -> None:
     histogram_quantile.launches = 0
     histogram_abs_quantile.launches = 0
+    ldm_unet.attention.kernel_launches = 0
 
 
 def build_zoo(dev) -> ZooModels:
@@ -721,7 +820,7 @@ def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
     launches = _launches()
     peak = torch.cuda.max_memory_allocated()
 
-    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": executed}:
+    if launches != _expected(executed):
         raise AssertionError(f"{label}: quantile kernel launches in {executed} steps: {launches}")
     if len(finite) != executed or not all(bool(f) for f in finite):
         raise AssertionError(f"{label}: UNet outputs finite per step: {[bool(f) for f in finite]}")
@@ -980,7 +1079,7 @@ def check_analysis(dev, zoo: ZooModels, image_path: str, out_dir: str) -> dict:
                              PROMPT_SUITE[:2])
     wall = time.perf_counter() - t0
     launches = _launches()
-    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": 10}:
+    if launches != _expected(10):
         raise AssertionError(f"score suite: quantile kernel launches in 2 x 5 steps: {launches}")
     values = [v for _, r in rows for kind in r.values() for v in kind.values()]
     if not np.isfinite(values).all():
@@ -1077,7 +1176,7 @@ def run_server(models: ZooModels, config: Config, root: str, steps: int,
             launches = _launches()
             if state["error"] is not None:
                 raise AssertionError(f"{label}: {state['error']}")
-            if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+            if launches != _expected(steps):
                 raise AssertionError(f"{label}: quantile kernel launches in {steps} steps: "
                                      f"{launches}")
             status, png, ctype = _http(port, urllib.parse.urlparse(
@@ -1233,16 +1332,39 @@ def profile_steps(dev, label: str, models, config, n_steps: int, out_dir: str) -
 
 def _launches() -> dict:
     return {"histogram_quantile": histogram_quantile.launches,
-            "histogram_abs_quantile": histogram_abs_quantile.launches}
+            "histogram_abs_quantile": histogram_abs_quantile.launches,
+            "ldm_softmax_attention": ldm_unet.attention.kernel_launches}
 
 
-def _check_no_launches(label: str) -> dict:
-    """The latent paths reach no port kernel: both quantile modes at 0."""
+def _expected(abs_quantile: int = 0, attention: int = 0) -> dict:
+    """Launch counts as `_launches` reads them: mode A of the quantile
+    kernel never, mode B `abs_quantile` times, the fused attention
+    `attention` times."""
+    return {"histogram_quantile": 0, "histogram_abs_quantile": abs_quantile,
+            "ldm_softmax_attention": attention}
+
+
+def _check_latent_launches(label: str, forwards: int) -> dict:
+    """A latent path launches no quantile kernel and the fused attention
+    once per attention call of each of its `forwards` UNet forwards (32 in
+    txt2img-f8-large: 16 transformer blocks, self and cross)."""
     launches = _launches()
-    if any(launches.values()):
-        raise AssertionError(f"{label}: quantile kernel launched {launches}")
-    print(f"{label}: quantile kernel launches {launches}", flush=True)
+    if forwards <= 0 or launches != _expected(attention=LDM_ATTENTION_PER_FORWARD * forwards):
+        raise AssertionError(f"{label}: kernel launches {launches} in {forwards} UNet forwards")
+    print(f"{label}: kernel launches {launches} in {forwards} UNet forwards", flush=True)
     return launches
+
+
+@contextlib.contextmanager
+def _counting_forwards(unet):
+    """A list that gains one entry per forward of `unet` (replays of its
+    CUDA graph included) while the block runs."""
+    forwards = []
+    hook = unet.register_forward_hook(lambda *_a: forwards.append(1))
+    try:
+        yield forwards
+    finally:
+        hook.remove()
 
 
 def check_latent_reference(dev) -> None:
@@ -1309,8 +1431,8 @@ def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
     finiteness and its host time; the VQ decoder's `post_quant_conv` and
     `decoder` and the upscaler synchronize around themselves, so each
     iteration's sampling time runs from its first UNet forward to its
-    decode, which waits for the device.  Returns the quantile launch
-    counts (both 0)."""
+    decode, which waits for the device.  Returns the kernel launch counts:
+    no quantile kernel, the fused attention 32 times a UNet forward."""
     vq = pipe.decode.__self__
     forwards, finite, batches = [], [], []
     dec = {"start": [], "end": []}
@@ -1350,7 +1472,7 @@ def run_latent_request(dev, pipe, esrgan, out_dir: str) -> dict:
             h.remove()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    launches = _check_no_launches("latent request")
+    launches = _check_latent_launches("latent request", len(finite))
 
     steps, iters, images = 50, 3, 9
     if len(finite) != steps * iters or set(batches) != {6} or not all(bool(f) for f in finite):
@@ -1385,8 +1507,8 @@ def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> dict:
     and a mask PNG (white top half: keep), PLMS, 20 steps, 1 iteration x 2
     images, on the zoo's stack with its decode wrapped to keep the final
     latents.  The kept region must end nearer the init latent than the free
-    region (mean |z - z_init|).  Returns the quantile launch counts (both
-    0)."""
+    region (mean |z - z_init|).  Returns the kernel launch counts (no
+    quantile kernel, the fused attention 32 times a UNet forward)."""
     os.makedirs(out_dir, exist_ok=True)
     coarse = np.random.default_rng(12).uniform(0, 255, (8, 8, 3))
     init_png = os.path.join(out_dir, "init.png")
@@ -1417,7 +1539,7 @@ def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> dict:
     finally:
         hook.remove()
     wall = time.perf_counter() - t0
-    launches = _check_no_launches("inpainting path")
+    launches = _check_latent_launches("inpainting path", len(finite))
     if len(finite) != 20 or not all(bool(f) for f in finite) or len(result["images"]) != 2:
         raise AssertionError(f"inpainting path: {len(finite)} forwards, "
                              f"{len(result['images'])} images")
@@ -1436,15 +1558,17 @@ def run_inpainting_path(dev, pipe, text_encode, out_dir: str) -> dict:
     return launches
 
 
-def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
+def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> dict:
     """Two CFG DDIM steps of the latent request (3 images, UNet batch 6)
     timed after a warm-up, then under torch.profiler: device ms per step,
     idle share, device time by kernel class, top kernels, and the UNet
-    forward's FLOPs (torch's FlopCounterMode: matmuls and convs) over its
-    device time.  Then the VQ decode of the 3 latents, the BERT at batch 3
-    and one ESRGAN x4 call on one 256x256 image (whole and in 128 px
-    tiles), each alone under the profiler, with their FLOPs counted the
-    same way."""
+    forward's FLOPs (torch's FlopCounterMode: matmuls and convs; the fused
+    attention kernel's products are not counted) over its device time.
+    Then the VQ decode of the 3 latents, the BERT at batch 3 and one ESRGAN
+    x4 call on one 256x256 image (whole and in 128 px tiles), each alone
+    under the profiler, with their FLOPs counted the same way.  Returns
+    the kernel launch counts of the UNet forwards (no quantile kernel, the
+    fused attention 32 times a forward)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from torch.utils.flop_counter import FlopCounterMode
@@ -1456,14 +1580,17 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
         torch.cuda.synchronize()
         return z
 
-    z = two_steps()
-    t0 = time.perf_counter()
-    two_steps()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    # CUDA activity only: with CPU activity too, the records of a replayed CUDA
-    # graph's kernels (the LDM UNet's) overlap, and their sum reads about 3x
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    _zero_launches()
+    with _counting_forwards(pipe.unet) as forwards:
+        z = two_steps()
+        t0 = time.perf_counter()
         two_steps()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+        # CUDA activity only: with CPU activity too, the records of a replayed
+        # CUDA graph's kernels (the LDM UNet's) overlap, and their sum reads
+        # about 3x
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            two_steps()
     by_class, by_name = {}, {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
@@ -1478,14 +1605,16 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
             fn()
         return counter.get_total_flops()
 
-    # the eager forward: a replay of the UNet's CUDA graph hides its ops from the counter
+    # the eager forward: a replay of the UNet's CUDA graph hides its ops from
+    # the counter, which does not see inside the fused attention kernel either
     flops = count_flops(lambda: pipe.unet._forward(torch.zeros((6, 32, 32, 4), device=dev),
                                                    torch.full((6,), 981.0, device=dev),
                                                    torch.cat([ctx_u, ctx_c])))
+    launches = _check_latent_launches("latent profile", len(forwards) + 1)
     print(f"latent profile 256x256 (3 images, UNet batch 6): wall {wall_ms:.2f} ms/step, device "
           f"{device_ms:.2f} ms/step, idle share {1 - device_ms / wall_ms:.3f}; UNet forward "
-          f"{flops / 1e12:.3f} TFLOP (matmuls and convs), {flops / device_ms / 1e9:.1f} "
-          f"TFLOP/s over the step's device time", flush=True)
+          f"{flops / 1e12:.3f} TFLOP (matmuls and convs outside the fused attention), "
+          f"{flops / device_ms / 1e9:.1f} TFLOP/s over the step's device time", flush=True)
     print("[latent] device ms/step by kernel class: " + ", ".join(
         f"{k} {v:.3f}" for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])), flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -1511,6 +1640,7 @@ def profile_latent(dev, pipe, text_encode, esrgan, out_dir: str) -> None:
           f"BERT at batch 3 device {bert_us / 1e3:.2f} ms ({rate(bert_flops, bert_us)}); "
           f"ESRGAN x4 of one 256x256 image device {whole_us / 1e3:.2f} ms whole "
           f"({rate(sr_flops, whole_us)}), {tiled_us / 1e3:.2f} ms in 128 px tiles", flush=True)
+    return launches
 
 
 # batch serving's requests (phase 18)
@@ -1558,7 +1688,7 @@ def run_batch_serving(models: ZooModels, config: Config, latent_pipe, text_encod
     guided_launches = _launches()
     peak = torch.cuda.max_memory_allocated()
     batch = len(SERVE_PROMPTS) * seeds
-    if guided_launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+    if guided_launches != _expected(steps):
         raise AssertionError(f"serve_guided_batch: quantile launches in {steps} steps: "
                              f"{guided_launches}")
     if tuple(final.shape) != (batch, config.height, config.width, 3) or not bool(
@@ -1587,10 +1717,11 @@ def run_batch_serving(models: ZooModels, config: Config, latent_pipe, text_encod
                                        base_seed=5, steps=steps)
     _zero_launches()
     t0 = time.perf_counter()
-    images = serve()
-    torch.cuda.synchronize()
+    with _counting_forwards(latent_pipe.unet) as forwards:
+        images = serve()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    latent_launches = _check_no_launches("serve_latent_batch")
+    latent_launches = _check_latent_launches("serve_latent_batch", len(forwards))
     batch = len(LATENT_SERVE_PROMPTS) * seeds
     ok = bool(torch.isfinite(images).all()) and float(images.min()) >= 0 and float(
         images.max()) <= 1
@@ -1644,7 +1775,7 @@ def run_full_width_ensemble(dev, zoo: ZooModels, config: Config, steps: int = 5)
         peak = torch.cuda.max_memory_allocated()
         launches = _launches()
         dev_ms = profiled_device_ms(lambda: step_fn(tables, ref[0][1], ref[0][0], draws))
-    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+    if launches != _expected(steps):
         raise AssertionError(f"ensemble: quantile launches in {steps} steps: {launches}")
     if not err <= 1e-5 * scale:
         raise AssertionError(f"ensemble vs guided_step: max |diff| {err:.3e}, scale {scale:.3f}")
@@ -1725,7 +1856,7 @@ def run_two_rank_gloo(dev) -> None:
                   for got, want in zip(rank["ensemble"], ref["ensemble"])
                   for a, b in zip(got, want))
     serve_err = max(float((rank["serve"] - ref["serve"]).abs().max()) for rank in ranks)
-    per_step = {"histogram_quantile": 0, "histogram_abs_quantile": 3}
+    per_step = _expected(3)
     launches = [rank["launches"] for rank in ranks]
     if not (ens_err <= 1e-5 and serve_err <= 1e-5):
         raise AssertionError(f"two ranks over gloo vs one process: ensemble {ens_err:.3e}, "
@@ -1764,7 +1895,7 @@ def run_resume(dev, models: ZooModels, config: Config, steps: int) -> dict:
     dev_ms = profiled_device_ms(lambda: guided_sample(pipe, None, resume_state=loaded))
     dev_ms /= steps - half
     err = float((resumed - straight).abs().max())
-    if launches != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+    if launches != _expected(steps):
         raise AssertionError(f"resume: quantile launches in {steps} steps: {launches}")
     if loaded.step != steps - 1 - half or not err <= 1e-3:
         raise AssertionError(f"resume: state step {loaded.step}, max |diff| {err:.3e}")
@@ -1812,7 +1943,7 @@ def run_dispatch(dev, models: ZooModels, config: Config, latent_pipe, text_encod
         raise AssertionError(f"dispatch: chunks {got}, expected {plan}")
     if not (torch.isfinite(frames).all() and err <= 1e-5):
         raise AssertionError(f"dispatch: segmented vs padded max |diff| {err:.3e}")
-    if launches["dispatch segmented"] != {"histogram_quantile": 0, "histogram_abs_quantile": steps}:
+    if launches["dispatch segmented"] != _expected(steps):
         raise AssertionError(f"dispatch: quantile launches {launches['dispatch segmented']}")
     print(f"dispatch (a): {steps} steps phase-segmented at {config.width}x{config.height} in "
           f"{wall:.2f} s, chunks (caps, steps, s) "
@@ -1837,21 +1968,22 @@ def run_dispatch(dev, models: ZooModels, config: Config, latent_pipe, text_encod
 
     ctx_c, ctx_u = text_encode([PROMPT] * 3), text_encode([""] * 3)
     _zero_launches()
-    for mode, eta in (("ddim", 0.5), ("plms", 0.0)):
-        kw = dict(batch_size=3, height=256, width=256, steps=steps, mode=mode, eta=eta)
-        one = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw)
-        chunk_times = []
-        chunked = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw,
-                                max_steps_per_dispatch=latent_chunk, chunk_times=chunk_times)
-        counts = [n for n, _ in chunk_times]
-        want = [min(latent_chunk, steps - lo) for lo in range(0, steps, latent_chunk)]
-        if not (torch.isfinite(one).all() and torch.equal(one, chunked)) or counts != want:
-            raise AssertionError(f"dispatch latent {mode}: chunks {counts}, max |diff| "
-                                 f"{float((one - chunked).abs().max()):.3e}")
-        print(f"dispatch (c) latent {mode}: {steps} CFG steps at 256x256, batch 3, in chunks "
-              f"(steps, s) " + ", ".join(f"{n} {t:.3f}" for n, t in chunk_times)
-              + " equal to one dispatch bit for bit", flush=True)
-    launches["dispatch latent"] = _check_no_launches("dispatch (c) latent")
+    with _counting_forwards(latent_pipe.unet) as forwards:
+        for mode, eta in (("ddim", 0.5), ("plms", 0.0)):
+            kw = dict(batch_size=3, height=256, width=256, steps=steps, mode=mode, eta=eta)
+            one = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw)
+            chunk_times = []
+            chunked = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw,
+                                    max_steps_per_dispatch=latent_chunk, chunk_times=chunk_times)
+            counts = [n for n, _ in chunk_times]
+            want = [min(latent_chunk, steps - lo) for lo in range(0, steps, latent_chunk)]
+            if not (torch.isfinite(one).all() and torch.equal(one, chunked)) or counts != want:
+                raise AssertionError(f"dispatch latent {mode}: chunks {counts}, max |diff| "
+                                     f"{float((one - chunked).abs().max()):.3e}")
+            print(f"dispatch (c) latent {mode}: {steps} CFG steps at 256x256, batch 3, in chunks "
+                  f"(steps, s) " + ", ".join(f"{n} {t:.3f}" for n, t in chunk_times)
+                  + " equal to one dispatch bit for bit", flush=True)
+    launches["dispatch latent"] = _check_latent_launches("dispatch (c) latent", len(forwards))
     return launches
 
 
@@ -1948,8 +2080,7 @@ def run_tools(dev, models: ZooModels, config: Config, default_models: ZooModels,
         with open(path, encoding="utf-8") as f:
             text = f.read()
         size = os.path.getsize(path)
-    if "segmented_guided_step" not in text or launches["trace"] != {
-            "histogram_quantile": 0, "histogram_abs_quantile": 1}:
+    if "segmented_guided_step" not in text or launches["trace"] != _expected(1):
         raise AssertionError(f"trace: annotate name found {'segmented_guided_step' in text}, "
                              f"launches {launches['trace']}")
     print(f"trace: one segmented step at caps {caps} written as a {size / 2**20:.1f} MiB Chrome "
@@ -1983,6 +2114,9 @@ def run_sdxl_graph(dev) -> dict:
                 torch.randn((6, cfg.adm_in_channels), generator=gi, device=dev))
 
     with torch.inference_mode():
+        # the capture empties the cache on entry: blocks cached by earlier
+        # phases must not count against it, the eager forward's own do
+        torch.cuda.empty_cache()
         unet._forward(*inputs(0))
         torch.cuda.synchronize(dev)
         reserved = torch.cuda.memory_reserved(dev)
@@ -1994,21 +2128,25 @@ def run_sdxl_graph(dev) -> dict:
             gaps.append((got - want).abs().max().item())
             if not torch.equal(got, want):
                 raise AssertionError(f"sdxl: graphed forward differs from eager by {gaps[-1]}")
-        before = ldm_unet.attention.calls
+        before = ldm_unet.attention.calls, ldm_unet.attention.kernel_launches
         unet(*args)
-        calls = ldm_unet.attention.calls - before
+        calls = ldm_unet.attention.calls - before[0]
+        launches = ldm_unet.attention.kernel_launches - before[1]
         replay_ms = profiled_device_ms(lambda: unet(*args))
         eager_ms = profiled_device_ms(lambda: unet._forward(*args))
     captured = torch.cuda.memory_reserved(dev) - reserved
     print(f"sdxl: UNet {params:,} parameters, graphed = eager bit for bit at 6 x 128 x 128 x 4 "
           f"(largest gaps {gaps}, |eps| max {want.abs().max().item():.4f}); device "
           f"{replay_ms:.2f} ms a replayed forward, {eager_ms:.2f} ms eager; {calls} attention "
-          f"calls a forward; the capture reserved {captured / 2 ** 20:.1f} MiB", flush=True)
-    if calls != 140 or params != 2567463684:
-        raise AssertionError(f"sdxl: {calls} attention calls, {params} parameters")
+          f"calls and {launches} fused kernel launches a forward; the capture reserved "
+          f"{captured / 2 ** 20:.1f} MiB", flush=True)
+    if calls != 140 or launches != 140 or params != 2567463684:
+        raise AssertionError(f"sdxl: {calls} attention calls, {launches} launches, "
+                             f"{params} parameters")
     del unet, got, want
     torch.cuda.empty_cache()
-    return {"replay_ms": replay_ms, "eager_ms": eager_ms, "attention_calls": calls}
+    return {"replay_ms": replay_ms, "eager_ms": eager_ms, "attention_calls": calls,
+            "attention_kernel_launches": launches}
 
 
 def main(argv=None) -> int:
@@ -2035,6 +2173,7 @@ def main(argv=None) -> int:
 
     phase("kernels", t_start)
     records = [check_quantile_kernel(dev, name) for name in QUANTILE_KERNELS]
+    attention_record = check_attention_kernel(dev)
 
     phase("reference", t_start)
     check_reference(dev)
@@ -2099,7 +2238,7 @@ def main(argv=None) -> int:
                                                      os.path.join(args.out, "inpaint"))
 
     phase("latent profile", t_start)
-    profile_latent(dev, latent_pipe, text_encode, esrgan, args.out)
+    by_path["latent profile"] = profile_latent(dev, latent_pipe, text_encode, esrgan, args.out)
 
     phase("batch serving", t_start)
     port_dist.init(dev, init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
@@ -2126,12 +2265,15 @@ def main(argv=None) -> int:
     weights.cleanup()
 
     phase("sdxl", t_start)
-    run_sdxl_graph(dev)
+    sdxl = run_sdxl_graph(dev)
 
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     for rec in records:
         rec["launches_by_path"] = {path: counts[rec["name"]] for path, counts in by_path.items()}
-    print(json.dumps({"kernels": records}), flush=True)
+    attention_record["launches_by_path"] = {
+        **{path: counts["ldm_softmax_attention"] for path, counts in by_path.items()},
+        "sdxl": sdxl["attention_kernel_launches"]}
+    print(json.dumps({"kernels": records + [attention_record]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

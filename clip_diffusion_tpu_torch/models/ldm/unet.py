@@ -28,7 +28,11 @@ Numerics kept from the JAX package:
   rounded to that dtype (6.3125, 8.9375 and 12.625 in bfloat16 for the
   full model's 40, 80 and 160; 8 for SDXL's 64), softmax in float32 cast
   back, all in the one function `attention`, whose `attention.calls`
-  counts its calls (a replayed graph adds the calls its capture made);
+  counts its calls (a replayed graph adds the calls its capture made).
+  That body is the plain version: on bfloat16 CUDA tensors `attention`
+  launches the fused kernel of `csrc/ldm_attention.cu` instead, which
+  keeps the logits in float32 and divides by the same bf16 scale
+  (`attention.kernel_launches` counts its launches);
 * GEGLU's gate through the exact (erf) GELU in float32.
 
 Nothing on the latent path takes a gradient, so there is no remat.
@@ -42,10 +46,10 @@ dtypes and device on its first call (two warm-up forwards on a side
 stream, then the capture); at most `GRAPHS_PER_MODULE` are kept, the
 least recently used dropped first, all in one memory pool of the module.
 One caller at a time per module: the replay reads the module's static
-input buffers.  The capture's own forwards leave `attention.calls` as it
-was; each replay adds the attention calls of one forward.  The forward
-must stay capturable: no host syncs and no host-to-device copies in
-`_forward`.
+input buffers.  The capture's own forwards leave `attention.calls` and
+`attention.kernel_launches` as they were; each replay adds those of one
+forward.  The forward must stay capturable: no host syncs and no
+host-to-device copies in `_forward`.
 """
 
 from __future__ import annotations
@@ -69,6 +73,7 @@ from clip_diffusion_tpu_torch.models.unet import (
     Upsample,
     timestep_embedding,
 )
+from clip_diffusion_tpu_torch.ops.attention import fused_attention
 from clip_diffusion_tpu_torch.utils.profiling import annotate
 
 GRAPHS_PER_MODULE = 4  # captured input shapes an LDMUNet keeps
@@ -116,17 +121,31 @@ class LDMUNetConfig:
 
 
 def attention(q, k, v, scale: float, dtype):
-    """softmax(q k^T / scale) v over (b, h, t, d) heads: the logits in the
-    compute dtype divided by `scale` (sqrt(d) rounded to that dtype), the
-    softmax in float32 cast back to `dtype`.  Every call adds one to
-    `attention.calls`."""
+    """softmax(q k^T / scale) v over (b, h, t, d) heads, `scale` sqrt(d)
+    rounded to the compute dtype.  On bfloat16 CUDA tensors one launch of
+    the fused kernel (`ops.attention.fused_attention`: float32 logits,
+    softmax and sums, bf16 output; a shape it does not take raises);
+    otherwise `attention_plain`.  Every call adds one to `attention.calls`,
+    every launch one to `attention.kernel_launches`."""
     attention.calls += 1
+    if q.is_cuda and q.dtype == torch.bfloat16:
+        out = fused_attention(q, k, v, scale)
+        attention.kernel_launches += 1
+        return out
+    return attention_plain(q, k, v, scale, dtype)
+
+
+def attention_plain(q, k, v, scale: float, dtype):
+    """`attention`'s plain version, on any device: the logits in the
+    compute dtype divided by `scale`, the softmax in float32 cast back to
+    `dtype`, then the product with v."""
     logits = torch.matmul(q, k.transpose(-1, -2)) / scale  # (b, h, t, s)
     attn = torch.softmax(logits.to(torch.float32), dim=-1).to(dtype)
     return torch.matmul(attn, v)
 
 
 attention.calls = 0  # calls of every LDM UNet, replays included, for run reports
+attention.kernel_launches = 0  # fused kernel launches, replays included
 
 
 class CrossAttention(nn.Module):
@@ -327,22 +346,24 @@ class LDMUNet(nn.Module):
             self._graphs[key] = self._capture(args)
             if len(self._graphs) > GRAPHS_PER_MODULE:
                 self._graphs.popitem(last=False)
-        graph, inputs, out, attention_calls = self._graphs[key]
+        graph, inputs, out, (calls, launches) = self._graphs[key]
         for buf, a in zip(inputs, args):
             buf.copy_(a)
         with annotate("ldm.unet.replay"):
             graph.replay()
-        attention.calls += attention_calls
+        attention.calls += calls
+        attention.kernel_launches += launches
         # the static output is overwritten by the next replay
         return out.clone()
 
     def _capture(self, args):
         """A CUDA graph of `_forward` on static copies of `args` -> (graph,
-        static inputs, static output, attention calls of one forward).
-        Outside inference mode, so that the buffers also take inputs under
-        plain `no_grad`.  `attention.calls` reads after as before."""
+        static inputs, static output, (attention calls, kernel launches) of
+        one forward).  Outside inference mode, so that the buffers also take
+        inputs under plain `no_grad`.  `attention.calls` and
+        `attention.kernel_launches` read after as before."""
         device = args[0].device
-        calls_before = attention.calls
+        counts_before = attention.calls, attention.kernel_launches
         with torch.cuda.device(device), torch.inference_mode(False), torch.no_grad():
             inputs = tuple(torch.empty_like(a, memory_format=torch.contiguous_format).copy_(a)
                            for a in args)
@@ -356,12 +377,12 @@ class LDMUNet(nn.Module):
                     self._forward(*inputs)
             torch.cuda.current_stream(device).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
-            calls_captured = attention.calls
+            calls, launches = attention.calls, attention.kernel_launches
             with torch.cuda.graph(graph, pool=pool, stream=stream):
                 out = self._forward(*inputs)
-        calls = attention.calls - calls_captured
-        attention.calls = calls_before
-        return graph, inputs, out, calls
+        counts = attention.calls - calls, attention.kernel_launches - launches
+        attention.calls, attention.kernel_launches = counts_before
+        return graph, inputs, out, counts
 
     def _forward(self, x, timesteps, context, y=None):
         cfg = self.config

@@ -11,6 +11,7 @@ the kernel evaluates the plain versions' float32 expressions in their order
 and counts with integers."""
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -19,7 +20,20 @@ import torch
 from clip_diffusion_tpu_torch import zoo
 from clip_diffusion_tpu_torch.models import from_jax
 from clip_diffusion_tpu_torch.models.esrgan import upscale
-from clip_diffusion_tpu_torch.models.ldm.unet import GRAPHS_PER_MODULE, LDMUNet, LDMUNetConfig
+from clip_diffusion_tpu_torch.models.ldm.unet import (
+    GRAPHS_PER_MODULE,
+    LDMUNet,
+    LDMUNetConfig,
+    attention as ldm_attention,
+    attention_plain,
+)
+from clip_diffusion_tpu_torch.ops.attention import (
+    LDM_SHAPES,
+    attention_float32,
+    errors,
+    fused_attention,
+    projection_heads,
+)
 from clip_diffusion_tpu_torch.models.marian import MarianConfig, greedy_decode, marian_tokenize
 from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, t5_tokenize
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
@@ -236,18 +250,28 @@ def test_ldm_unet_graph_replays_the_eager_forward(cuda, dtype, monkeypatch):
     with the caller's tensors and the returned output; one
     `ldm.unet.replay` span per replayed call, whose kernels the
     profiler sees; at most GRAPHS_PER_MODULE graphs, the least recently
-    used dropped."""
+    used dropped.  Each call, the capturing one included, adds one
+    forward's attention calls (22) to `attention.calls` and, in bfloat16,
+    as many fused kernel launches to `attention.kernel_launches` (float32
+    runs the plain body: none).  In bfloat16 the heads are 64 wide (the
+    fused kernel's width; the tiny config's 16 has no instance)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(LDMUNetConfig.tiny(), dtype=dtype)
+    if dtype == torch.bfloat16:
+        cfg = dataclasses.replace(cfg, model_channels=64, num_heads=-1, num_head_channels=64)
     unet = _random_ldm_unet(cfg, cuda, 0)
     seen = []
     hook = unet.register_forward_hook(lambda _m, args, out: seen.append((args, out)))
     calls = []
+    launches = 22 if dtype == torch.bfloat16 else 0
     for k, batch in enumerate((2, 2, 6, 6, 2)):
         args = _ldm_inputs(cfg, batch, 8, 5, cuda, k)
         with torch.inference_mode() if k % 2 == 0 else torch.no_grad():
+            before = ldm_attention.calls, ldm_attention.kernel_launches
             got = unet(*args)
+            assert (ldm_attention.calls - before[0],
+                    ldm_attention.kernel_launches - before[1]) == (22, launches), k
             want = unet._forward(*args)
         assert torch.equal(got, want), f"call {k}: {(got - want).abs().max().item()}"
         assert seen[-1][1] is got and all(a is b for a, b in zip(seen[-1][0], args))
@@ -286,7 +310,9 @@ def test_ldm_unet_graph_replays_the_eager_forward(cuda, dtype, monkeypatch):
 def test_full_width_ldm_unet_graph_equals_eager(cuda):
     """txt2img-f8-large's UNet in bfloat16 at the latent request's CFG
     shape (6 x 32 x 32 x 4, context 6 x 77 x 1280): the replayed graph
-    equals the eager forward bit for bit, twice."""
+    equals the eager forward bit for bit, twice; each replay adds a
+    forward's 32 attention calls and 32 fused kernel launches (16
+    transformer blocks, self and cross)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = LDMUNetConfig()
@@ -297,7 +323,10 @@ def test_full_width_ldm_unet_graph_equals_eager(cuda):
         reserved = torch.cuda.memory_reserved(cuda)
         for k in range(2):
             args = _ldm_inputs(cfg, 6, 32, 77, cuda, 10 + k)
+            before = ldm_attention.calls, ldm_attention.kernel_launches
             got = unet(*args)
+            assert (ldm_attention.calls - before[0],
+                    ldm_attention.kernel_launches - before[1]) == (32, 32)
             want = unet._forward(*args)
             gap = (got - want).abs().max().item()
             print(f"full width, call {k}: largest gap {gap}, |eps| max "
@@ -306,6 +335,94 @@ def test_full_width_ldm_unet_graph_equals_eager(cuda):
     print(f"memory reserved: {reserved / 2 ** 20:.1f} MiB after an eager forward, "
           f"{torch.cuda.memory_reserved(cuda) / 2 ** 20:.1f} MiB after the capture")
     del unet
+
+
+@pytest.mark.cuda
+def test_full_width_sdxl_unet_graph_equals_eager(cuda):
+    """SDXL base 1.0's UNet in bfloat16 at the SDXL cell's CFG shape (6 x
+    128 x 128 x 4, context 6 x 77 x 2048, vector 6 x 2816), its attention
+    through the fused kernel: the replayed graph equals the eager forward
+    bit for bit, twice; each replay adds a forward's 140 attention calls
+    and 140 kernel launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = LDMUNetConfig.sdxl()
+    unet = _random_ldm_unet(cfg, cuda, 15)
+    with torch.inference_mode():
+        for k in range(2):
+            g = torch.Generator(cuda).manual_seed(20 + k)
+            args = _ldm_inputs(cfg, 6, 128, 77, cuda, 20 + k) + (
+                torch.randn((6, cfg.adm_in_channels), generator=g, device=cuda),)
+            before = ldm_attention.calls, ldm_attention.kernel_launches
+            got = unet(*args)
+            assert (ldm_attention.calls - before[0],
+                    ldm_attention.kernel_launches - before[1]) == (140, 140)
+            want = unet._forward(*args)
+            assert torch.isfinite(got).all()
+            assert torch.equal(got, want), f"call {k}: {(got - want).abs().max().item()}"
+    del unet
+    torch.cuda.empty_cache()
+
+
+# Every (batch, heads, query tokens, key tokens, head dim) the LDM
+# configurations send `attention`
+ATTENTION_SHAPES = [shape[1:6] for shape in LDM_SHAPES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_attention_against_plain_and_float32(cuda, shape):
+    """The fused kernel and the plain body on the same bf16 inputs (logits
+    spread about 2), each against the same attention evaluated in float32:
+    the kernel's error is no larger than the plain body's, in the relative
+    Frobenius norm and in the largest element.  Against the plain body
+    the kernel stays within 2% (relative norm) and 0.1 (largest element
+    of outputs up to about 3): the plain body rounds each logit to bf16
+    before the softmax (2^-9 of a logit, up to a few percent of a
+    probability at these logits), which the kernel does not, and both
+    round P and the output to bf16.  The result is the (b, t, h, d)
+    buffer seen as (b, h, t, d), and equal on a second call."""
+    b, h, t_q, t_k, d = shape
+    g = torch.Generator(cuda).manual_seed(t_q + t_k + d)
+    q = projection_heads(g, b, h, t_q, d, 2.0)
+    k = projection_heads(g, b, h, t_k, d)
+    v = projection_heads(g, b, h, t_k, d)
+    scale = torch.tensor(math.sqrt(d), dtype=torch.bfloat16).item()
+    got = fused_attention(q, k, v, scale)
+    plain = attention_plain(q, k, v, scale, torch.bfloat16)
+    ref = attention_float32(q, k, v, scale)
+    assert got.shape == plain.shape == (b, h, t_q, d) and got.dtype == torch.bfloat16
+    assert got.transpose(1, 2).is_contiguous()
+    assert torch.equal(got, fused_attention(q, k, v, scale))
+    k_rel, k_max = errors(got, ref)
+    p_rel, p_max = errors(plain, ref)
+    kp_rel, kp_max = errors(got, plain)
+    print(f"{shape}: vs float32 kernel {k_rel:.3e} / {k_max:.3e}, plain {p_rel:.3e} / "
+          f"{p_max:.3e}; kernel vs plain {kp_rel:.3e} / {kp_max:.3e}")
+    assert k_rel <= p_rel and k_max <= p_max
+    assert kp_rel <= 0.02 and kp_max <= 0.1
+
+
+@pytest.mark.cuda
+def test_fused_attention_refuses_grad_and_other_shapes(cuda):
+    """On the card a bf16 input that requires grad under grad mode raises
+    (forward only), as does a head width without an instance; without
+    grad mode the same input runs; float32 takes the plain body."""
+    g = torch.Generator(cuda).manual_seed(0)
+    q = projection_heads(g, 2, 4, 64, 64)
+    kv = projection_heads(g, 2, 4, 77, 64)
+    with pytest.raises(RuntimeError, match="grad"):
+        ldm_attention(q.detach().requires_grad_(True), kv, kv, 8.0, torch.bfloat16)
+    with torch.no_grad():
+        ldm_attention(q.detach().requires_grad_(True), kv, kv, 8.0, torch.bfloat16)
+    bad = projection_heads(g, 2, 4, 64, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        ldm_attention(bad, bad, bad, 5.65625, torch.bfloat16)
+    launches = ldm_attention.kernel_launches
+    got = ldm_attention(q.float(), kv.float(), kv.float(), 8.0, torch.float32)
+    assert ldm_attention.kernel_launches == launches
+    assert torch.equal(got, attention_plain(q.float(), kv.float(), kv.float(), 8.0,
+                                            torch.float32))
 
 
 @pytest.mark.cuda
