@@ -69,7 +69,7 @@ Phases, each announced on its own line; any failure exits non-zero:
 12. profile: two steps of the main path timed, then run under
    torch.profiler: device time by kernel class and by direction, the
    device's idle share, and each tower's device time over the step's cuts
-   (phase 22's profile_step gives each cutout phase's step cost on the
+   (the tools phase's profile_step gives each cutout phase's step cost on the
    main path and the default request);
 13. latent reference: the tiny float32 latent stack (LDM UNet, VQ, BERT,
     RRDBNet x4) on the card against the same stack on the CPU, same weights
@@ -109,25 +109,16 @@ Phases, each announced on its own line; any failure exits non-zero:
     `return_state=True`, the `SamplingState` through an .npz file, then the
     other 5 with `draws=None`, against the straight 10-step run (max |diff|
     at most 1e-3 on [-1, 1]);
-21. dispatch: (a) the main path's 10 steps phase-segmented
-    (`SamplerConfig.phase_segmented`) in chunks of at most 3 steps with
-    `chunk_times`: the chunks follow `compute_phase_segments` in order and
-    the final image is within 1e-5 of the padded run's under the same draws;
-    (b) a `deadline` already past raises `DeadlineExceeded` before any step
-    and chunk time; (c) the default latent stack at 256x256, 1 x 3 images,
-    10 CFG steps of DDIM (eta 0.5) and of PLMS, in chunks of 4
-    (`max_steps_per_dispatch`) equal to one dispatch bit for bit, with
-    chunk step counts 4, 4, 2;
-22. tools: `tools.profile_step`'s sections on the main path's zoo (the
+21. tools: `tools.profile_step`'s sections on the main path's zoo (the
     250-step default schedule, K=2, repeats=2), its BREAKDOWN line printed;
     `tools.build_banks --all` into a temporary directory, each bank within
     1e-4 of data/banks with every name retrieving its own row and the names
     files byte-equal; `tools.eval_clip_score --selftest`, and `--certify`
     on phase 6's release-file root, which names as MISSING exactly the slots
     phase 6 did not write and fails with exit code 1; `utils.profiling.
-    trace` around one segmented step, its Chrome trace holding the
+    trace` around one guided step, its Chrome trace holding the
     `annotate` name;
-23. sdxl: Stable Diffusion XL base 1.0's UNet (bfloat16, 2,567,463,684
+22. sdxl: Stable Diffusion XL base 1.0's UNet (bfloat16, 2,567,463,684
     parameters drawn from a seed) at the SDXL cell's CFG shape (6 x 128 x
     128 x 4, context 6 x 77 x 2048, vector 6 x 2816): the replayed CUDA
     graph equals the eager forward bit for bit, twice; one replayed and
@@ -139,17 +130,16 @@ Phases, each announced on its own line; any failure exits non-zero:
 On every path the kernel launch counts are zeroed just before it runs and
 read just after: on the guided paths (the auto-modifier request, the
 score suite's samples, the server's requests, batch serving, the ensemble,
-the resumed and the segmented trajectories, profile_step and the traced
-step included) mode B of the quantile kernel once per executed step (per
-rank), mode A never, the fused attention never; on the latent paths (the
-latent request, inpainting, the latent profile, serve_latent_batch and
-the chunked latent dispatch) neither quantile mode and the fused attention
-32 times each UNet forward they make (16 transformer blocks, self and
-cross); under a past deadline none.
+the resumed trajectory, profile_step and the traced step included) mode B
+of the quantile kernel once per executed step (per rank), mode A never,
+the fused attention never; on the latent paths (the latent request,
+inpainting, the latent profile and serve_latent_batch) neither quantile
+mode and the fused attention 32 times each UNet forward they make (16
+transformer blocks, self and cross).
 
 Then one JSON line {"kernels": [...]} (each kernel's launches on the main
 path, and on every path under "launches_by_path"; the fused attention's
-on every path and in phase 23), the nvidia-smi line again, and as the
+on every path and in the sdxl phase), the nvidia-smi line again, and as the
 last line {"ok": true, "device": {...}}.  TF32 is off throughout, so
 float32 comparisons run in full float32.  Without a CUDA device the script
 exits non-zero and prints no result.
@@ -1907,86 +1897,6 @@ def run_resume(dev, models: ZooModels, config: Config, steps: int) -> dict:
     return launches
 
 
-def _chunk_plan(segments, chunk: int) -> list:
-    """(caps, steps) of each dispatch chunk: each phase cut into chunks."""
-    return [(caps, min(chunk, len(steps) - lo)) for steps, caps in segments
-            for lo in range(0, len(steps), chunk)]
-
-
-def run_dispatch(dev, models: ZooModels, config: Config, latent_pipe, text_encode,
-                 steps: int) -> dict:
-    """Phase 21: (a) the main path's trajectory phase-segmented in chunks of
-    at most 3 steps with chunk_times, against the padded run under the same
-    draws (1e-5, 0 predicted), its chunks in the phases' order, mode B once
-    per step; (b) a deadline already past raises DeadlineExceeded before
-    any step; (c) the default latent stack, 256x256, 1 x 3 images, 10 CFG
-    steps of DDIM (eta 0.5) and of PLMS, in chunks of 4 against one
-    dispatch, bit for bit.  Returns the launch counts by path."""
-    chunk, latent_chunk = 3, 4
-    sampler = SamplerConfig(steps=steps, eta=0.8)
-    pipe_pad = build_pipeline(models, config, [(PROMPT, 1.0)], sampler)
-    pipe_seg = build_pipeline(models, config, [(PROMPT, 1.0)],
-                              dataclasses.replace(sampler, phase_segmented=True))
-    padded, _ = guided_sample(pipe_pad, TorchDraws(1234, dev))
-    times = []
-    _zero_launches()
-    t0 = time.perf_counter()
-    seg, frames = guided_sample(pipe_seg, TorchDraws(1234, dev), max_steps_per_dispatch=chunk,
-                                chunk_times=times)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"dispatch segmented": _launches()}
-    plan = _chunk_plan(compute_phase_segments(pipe_seg, steps), chunk)
-    got = [(caps, n) for caps, n, _ in times]
-    err = float((seg - padded).abs().max())
-    if got != plan or sum(n for _, n in got) != steps or max(n for _, n in got) > chunk:
-        raise AssertionError(f"dispatch: chunks {got}, expected {plan}")
-    if not (torch.isfinite(frames).all() and err <= 1e-5):
-        raise AssertionError(f"dispatch: segmented vs padded max |diff| {err:.3e}")
-    if launches["dispatch segmented"] != _expected(steps):
-        raise AssertionError(f"dispatch: quantile launches {launches['dispatch segmented']}")
-    print(f"dispatch (a): {steps} steps phase-segmented at {config.width}x{config.height} in "
-          f"{wall:.2f} s, chunks (caps, steps, s) "
-          + ", ".join(f"({c[0]},{c[1]}) {n} {t:.3f}" for c, n, t in times)
-          + f"; segmented vs padded max |diff| {err:.3e}; quantile kernel launches "
-          f"{launches['dispatch segmented']}", flush=True)
-
-    late = []
-    _zero_launches()
-    try:
-        guided_sample(pipe_seg, TorchDraws(1234, dev), chunk_times=late, deadline=time.time() - 1)
-    except guided_mod.DeadlineExceeded as e:
-        message = str(e)
-    else:
-        raise AssertionError("dispatch: a past deadline did not raise")
-    launches["dispatch deadline"] = _launches()
-    if late or any(launches["dispatch deadline"].values()):
-        raise AssertionError(f"dispatch deadline: chunk times {late}, launches "
-                             f"{launches['dispatch deadline']}")
-    print(f"dispatch (b): a past deadline raises DeadlineExceeded ({message!r}) with no chunk "
-          f"time; quantile kernel launches {launches['dispatch deadline']}", flush=True)
-
-    ctx_c, ctx_u = text_encode([PROMPT] * 3), text_encode([""] * 3)
-    _zero_launches()
-    with _counting_forwards(latent_pipe.unet) as forwards:
-        for mode, eta in (("ddim", 0.5), ("plms", 0.0)):
-            kw = dict(batch_size=3, height=256, width=256, steps=steps, mode=mode, eta=eta)
-            one = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw)
-            chunk_times = []
-            chunked = latent_sample(latent_pipe, TorchDraws(77, dev), ctx_c, ctx_u, **kw,
-                                    max_steps_per_dispatch=latent_chunk, chunk_times=chunk_times)
-            counts = [n for n, _ in chunk_times]
-            want = [min(latent_chunk, steps - lo) for lo in range(0, steps, latent_chunk)]
-            if not (torch.isfinite(one).all() and torch.equal(one, chunked)) or counts != want:
-                raise AssertionError(f"dispatch latent {mode}: chunks {counts}, max |diff| "
-                                     f"{float((one - chunked).abs().max()):.3e}")
-            print(f"dispatch (c) latent {mode}: {steps} CFG steps at 256x256, batch 3, in chunks "
-                  f"(steps, s) " + ", ".join(f"{n} {t:.3f}" for n, t in chunk_times)
-                  + " equal to one dispatch bit for bit", flush=True)
-    launches["dispatch latent"] = _check_latent_launches("dispatch (c) latent", len(forwards))
-    return launches
-
-
 def _check_banks(out_dir: str) -> None:
     """Each rebuilt bank within 1e-4 of the committed one, every name
     retrieving its own row, the names files byte-equal."""
@@ -2009,14 +1919,14 @@ def _check_banks(out_dir: str) -> None:
 
 def run_tools(dev, models: ZooModels, config: Config, default_models: ZooModels,
               weights_root: str, k: int = 2, repeats: int = 2) -> dict:
-    """Phase 22: profile_step's sections on the main path's zoo (250-step
+    """Phase 21: profile_step's sections on the main path's zoo (250-step
     default schedule, K=2, repeats=2) with its BREAKDOWN line, and its
     `phases` section on the default request's (768x512, four towers,
     repeats=1) with a second BREAKDOWN line; build_banks
     --all against data/banks; eval_clip_score --selftest, and --certify on
     phase 6's release-file root, which must name exactly the slots phase 6
     did not write as MISSING and fail with exit code 1; utils.profiling.
-    trace around one segmented step, its file holding the annotate names.
+    trace around one guided step, its file holding the annotate names.
     Returns the launch counts by path."""
     launches = {}
     pipe = build_pipeline(models, config, [(PROMPT, 1.0)],
@@ -2064,33 +1974,32 @@ def run_tools(dev, models: ZooModels, config: Config, default_models: ZooModels,
           f"{report['certify']} (exit code {certify_rc}), present {sorted(set(slots) - missing)}, "
           f"MISSING {sorted(missing)}", flush=True)
 
-    seg = build_pipeline(models, config, [(PROMPT, 1.0)],
-                         SamplerConfig(steps=10, eta=0.8, phase_segmented=True))
-    steps, caps = compute_phase_segments(seg, 10)[0]
-    tables = schedule_tables(seg.schedule, dev)
+    pipe = build_pipeline(models, config, [(PROMPT, 1.0)], SamplerConfig(steps=10, eta=0.8))
+    steps, caps = compute_phase_segments(pipe, 10)[0]
+    tables = schedule_tables(pipe.schedule, dev)
     draws = TorchDraws(5, dev)
     x = draws.initial_noise((1, config.height, config.width, 3))
     with tempfile.TemporaryDirectory(prefix="trace_") as tmp:
         _zero_launches()
         with trace(tmp) as path:
-            with annotate("segmented_guided_step"):
-                guided_step(seg, tables, x, int(steps[0]), draws, slot_caps=caps)
+            with annotate("traced_guided_step"):
+                guided_step(pipe, tables, x, int(steps[0]), draws)
             torch.cuda.synchronize()
         launches["trace"] = _launches()
         with open(path, encoding="utf-8") as f:
             text = f.read()
         size = os.path.getsize(path)
-    if "segmented_guided_step" not in text or launches["trace"] != _expected(1):
-        raise AssertionError(f"trace: annotate name found {'segmented_guided_step' in text}, "
+    if "traced_guided_step" not in text or launches["trace"] != _expected(1):
+        raise AssertionError(f"trace: annotate name found {'traced_guided_step' in text}, "
                              f"launches {launches['trace']}")
-    print(f"trace: one segmented step at caps {caps} written as a {size / 2**20:.1f} MiB Chrome "
+    print(f"trace: one guided step at caps {caps} written as a {size / 2**20:.1f} MiB Chrome "
           f"trace holding its annotate name; quantile kernel launches {launches['trace']}",
           flush=True)
     return launches
 
 
 def run_sdxl_graph(dev) -> dict:
-    """Phase 23: SDXL base 1.0's UNet replayed from its CUDA graph at the
+    """Phase 22: SDXL base 1.0's UNet replayed from its CUDA graph at the
     SDXL cell's CFG shape against its eager forward (see the module
     docstring)."""
     cfg = ldm_unet.LDMUNetConfig.sdxl()
@@ -2222,8 +2131,8 @@ def main(argv=None) -> int:
                               os.path.join(args.out, "server")))
 
     phase("profile", t_start)
-    # the main path alone: phase 22's profile_step gives each cutout phase's
-    # step cost on the main path's and the default request's zoos
+    # the main path alone: the tools phase's profile_step gives each cutout
+    # phase's step cost on the main path's and the default request's zoos
     profile_steps(dev, "main", main_models, main_config, 2, args.out)
 
     phase("latent zoo", t_start)
@@ -2255,10 +2164,6 @@ def main(argv=None) -> int:
 
     phase("resume", t_start)
     by_path["resume"] = run_resume(dev, main_models, main_config, args.steps)
-
-    phase("dispatch", t_start)
-    by_path.update(run_dispatch(dev, main_models, main_config, latent_pipe, text_encode,
-                                args.steps))
 
     phase("tools", t_start)
     by_path.update(run_tools(dev, main_models, main_config, default_models, weights.name))

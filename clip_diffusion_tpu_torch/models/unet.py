@@ -21,33 +21,22 @@ parameters across.  Numerics kept from the JAX package:
   rounded to that dtype, softmax in float32 cast back; qkv is laid out per
   head as [q; k; v] (the ADM layout, not torch's packed [Q; K; V]);
 * `remat=True` runs each ResBlock/AttentionBlock under
-  `torch.utils.checkpoint`.  `remat_policy` "full" recomputes the whole
-  block in the backward (least activation memory); "dots" keeps the
-  outputs of the matmuls and convolutions without batch dimensions
-  (`aten.mm`, `aten.addmm`, `aten.convolution`; not the attention's
-  `bmm`) and recomputes the rest, selective activation checkpointing in
-  place of `jax.checkpoint_policies.dots_with_no_batch_dims_saveable`.
-  (That JAX policy saves only `dot_general`; the JAX package's comment on
-  it names convolutions too, and the port keeps them.)
+  `torch.utils.checkpoint`, which recomputes the whole block in the
+  backward (`remat_policy` "full", its only value).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
+from torch.utils.checkpoint import checkpoint
 
-REMAT_POLICIES = ("full", "dots")
+REMAT_POLICIES = ("full",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +53,7 @@ class UNetConfig:
     resblock_updown: bool = True
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # what the backward recomputes under remat: "full" everything, "dots"
-    # all but the matmul and convolution outputs (module docstring)
+    # what the backward recomputes under remat: "full", everything
     remat_policy: str = "full"
 
     def __post_init__(self):
@@ -178,16 +166,6 @@ class GroupNorm32(nn.GroupNorm):
         a = a.reshape(b, c).to(x.dtype)[expand]
         bb = bb.reshape(b, c).to(x.dtype)[expand]
         return x * a + bb
-
-
-_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-                  torch.ops.aten.convolution.default)
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    """Keep matmul and convolution outputs without batch dims; recompute
-    the rest."""
-    return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _avg_pool2(x):
@@ -356,9 +334,6 @@ class UNetModel(nn.Module):
     def _run(self, layer, h, emb):
         fn = (lambda a, e: layer(a, e)) if isinstance(layer, ResBlock) else (lambda a, e: layer(a))
         if self.config.remat and torch.is_grad_enabled() and not isinstance(layer, Conv2d):
-            if self.config.remat_policy == "dots":
-                return checkpoint(fn, h, emb, use_reentrant=False, context_fn=functools.partial(
-                    create_selective_checkpoint_contexts, _dots_policy))
             return checkpoint(fn, h, emb, use_reentrant=False)
         return fn(h, emb)
 

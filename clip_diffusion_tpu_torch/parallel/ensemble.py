@@ -14,8 +14,6 @@ to the order of the gradient's sum.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
-
 import torch.distributed as dist
 
 from clip_diffusion_tpu_torch.parallel.dist import rank_and_size
@@ -26,12 +24,10 @@ from clip_diffusion_tpu_torch.pipeline.guided import (
 )
 
 
-def build_ensemble_guided_step(pipe: GuidedPipeline, group=None,
-                               slot_caps: Optional[Tuple[int, int]] = None):
+def build_ensemble_guided_step(pipe: GuidedPipeline, group=None):
     """-> step_fn(tables, x, step, draws, init_image=None, history=None) ->
     (x_next, pred_x0), `guided_step`'s signature, with perceptor `rank`
-    of `pipe` on rank `rank` of `group`.  Needs one perceptor per rank.
-    `slot_caps`: as `guided_step`'s, the slot layout handed to the draws."""
+    of `pipe` on rank `rank` of `group`.  Needs one perceptor per rank."""
     rank, size = rank_and_size(group)
     if size != len(pipe.perceptors):
         raise ValueError(
@@ -41,8 +37,7 @@ def build_ensemble_guided_step(pipe: GuidedPipeline, group=None,
     def step_fn(tables, x, step: int, draws, init_image=None, history=None):
         grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image,
                                               perceptor_subset=(rank,),
-                                              include_image_terms=rank == 0,
-                                              slot_caps=slot_caps)
+                                              include_image_terms=rank == 0)
         if dist.is_initialized():
             dist.all_reduce(grad, group=group)
         # pred_x0_raw comes from the replicated UNet forward: the same on

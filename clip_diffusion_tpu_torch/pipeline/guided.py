@@ -37,20 +37,6 @@ package's key chain.
 SamplingState` (`resume_state`, `return_state`, `stop_after`): keyed draws
 make the resumed steps draw what the uninterrupted run drew.
 
-The dispatch layer is kept for parity with the JAX package, which needs
-it for its static padded slot layouts and per-dispatch limits.  With
-`SamplerConfig.phase_segmented` the trajectory walks the cutout
-schedule's phases (`compute_phase_segments`) in chunks of at most
-`max_steps_per_dispatch` steps; between chunks, and only there, a host
-`deadline` is checked (`DeadlineExceeded`) and, when asked for, the device
-is synchronized and each chunk's (caps, steps, seconds) recorded in
-`chunk_times`.  The port runs every step eagerly and evaluates only the
-active cutout slots, so none of this changes what it computes: under
-`TorchDraws` the segmented trajectory equals the padded one bit for bit.
-The caps reach one thing, the slot layout `cutout_spec(resolution,
-slot_caps)` handed to `draws.cutouts`, which `TorchDraws` ignores and a
-replay of the JAX package's draws (whose keys follow that layout) reads.
-
 Spans (`utils.profiling.annotate`, recorded while a profile collects):
 `guided.sample` around a `guided_sample` call, `guided.step` per
 position, inside it `guided.unet` (the forward and pred_x0),
@@ -64,7 +50,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -132,20 +117,12 @@ class GuidedPipeline:
     lpips_fn: Optional[Callable] = None  # (x, y) NHWC in [-1, 1] -> (B,)
     use_init_losses: bool = False  # LPIPS/MS-SSIM terms against the init image
 
-    def cutout_spec(self, resolution: int,
-                    slot_caps: Optional[Tuple[int, int]] = None) -> CutoutSpec:
+    def cutout_spec(self, resolution: int) -> CutoutSpec:
         """The padded slot layout handed to `draws.cutouts`: the schedule
-        maxima, or `slot_caps` (max_overview, max_inner) for a
-        phase-segmented step (module docstring)."""
+        maxima."""
         cs = self.config.cutout_schedules
-        max_ov, max_in = slot_caps or (cs.max_overview_cuts, cs.max_inner_cuts)
-        return CutoutSpec(cut_size=resolution, max_overview=max_ov, max_inner=max_in)
-
-
-class DeadlineExceeded(Exception):
-    """Raised by `guided_sample` when its host `deadline` (a `time.time()`
-    value) has passed between dispatch chunks; `chunk_times` keeps the
-    chunks that completed.  Checked only between chunks."""
+        return CutoutSpec(cut_size=resolution, max_overview=cs.max_overview_cuts,
+                          max_inner=cs.max_inner_cuts)
 
 
 # the first word of each draw's key: what the draw is for
@@ -291,8 +268,7 @@ def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
 def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
                       init_image: Optional[torch.Tensor] = None,
                       perceptor_subset: Optional[Sequence[int]] = None,
-                      include_image_terms: bool = True,
-                      slot_caps: Optional[Tuple[int, int]] = None):
+                      include_image_terms: bool = True):
     """d(loss)/dx at respaced step `step` -> (grad, pred_x0), both (B,H,W,3).
     `init_image` (1, H, W, 3) in [-1, 1] is the target of the LPIPS and
     MS-SSIM terms when `pipe.use_init_losses` is on.
@@ -300,10 +276,7 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
     `perceptor_subset` limits the CLIP terms to these perceptors, each with
     cutouts of its own keyed by its global index; `include_image_terms=
     False` drops the whole-image terms (TV, range, LPIPS, MS-SSIM).  The
-    ensemble (`parallel/ensemble.py`) sums such gradients over ranks.
-    `slot_caps` (max_overview, max_inner) sizes the slot layout handed to
-    `draws.cutouts`, as the phase-segmented runner does, and changes
-    nothing else; the step's scheduled counts must fit."""
+    ensemble (`parallel/ensemble.py`) sums such gradients over ranks."""
     cfg = pipe.config
     b = x.shape[0]
     with torch.enable_grad():
@@ -337,13 +310,10 @@ def guidance_gradient(pipe: GuidedPipeline, tables, x, step: int, draws,
             idx = schedule_index(pipe.schedule, step)
             ov_t, in_t, power_t, gray_t = cfg.cutout_schedules.as_arrays()
             n_ov, n_in = int(ov_t[idx]), int(in_t[idx])
-            if slot_caps is not None and (n_ov > slot_caps[0] or n_in > slot_caps[1]):
-                raise ValueError(f"step {step} schedules ({n_ov}, {n_in}) cutouts, more than "
-                                 f"slot_caps {tuple(slot_caps)}")
             gdtype = cfg.guidance_torch_dtype
             for key, resolution, members in perceptor_groups(pipe, perceptor_subset):
                 with annotate("guided.cutouts"):
-                    spec = pipe.cutout_spec(resolution, slot_caps)
+                    spec = pipe.cutout_spec(resolution)
                     cd = draws.cutouts(step, key, b, cfg.num_cutout_batches, spec, n_ov, n_in)
                     cuts, w = make_cutouts_batch(
                         denoised.to(gdtype), cd, n_ov, n_in, float(power_t[idx]),
@@ -421,12 +391,10 @@ def step_from_gradient(pipe: GuidedPipeline, tables, x, step: int, draws, grad,
 
 def guided_step(pipe: GuidedPipeline, tables, x, step: int, draws,
                 init_image: Optional[torch.Tensor] = None,
-                history: Optional[PLMSHistory] = None,
-                slot_caps: Optional[Tuple[int, int]] = None):
+                history: Optional[PLMSHistory] = None):
     """One full guided step -> (x_next, pred_x0_final); PLMS needs
-    `history`, which it advances.  `slot_caps`: as `guidance_gradient`."""
-    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image,
-                                          slot_caps=slot_caps)
+    `history`, which it advances."""
+    grad, pred_x0_raw = guidance_gradient(pipe, tables, x, step, draws, init_image)
     return step_from_gradient(pipe, tables, x, step, draws, grad, pred_x0_raw, history)
 
 
@@ -460,20 +428,6 @@ def compute_phase_segments(pipe: GuidedPipeline, n_steps: int):
     return [(np.asarray(s, np.int32), caps) for s, caps in segments]
 
 
-def _phase_chunks(pipe: GuidedPipeline, n_steps: int, start_pos: int, end_pos: int,
-                  chunk_size: int):
-    """(slot caps, positions) per chunk of positions [start_pos, end_pos):
-    each phase segment's positions cut into chunks of at most `chunk_size`."""
-    if chunk_size < 1:
-        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {chunk_size}")
-    offset = 0
-    for steps, caps in compute_phase_segments(pipe, n_steps):
-        positions = range(max(offset, start_pos), min(offset + len(steps), end_pos))
-        offset += len(steps)
-        for lo in range(0, len(positions), chunk_size):
-            yield caps, positions[lo:lo + chunk_size]
-
-
 def guided_sample(
     pipe: GuidedPipeline,
     draws,
@@ -482,12 +436,9 @@ def guided_sample(
     num_frames: int = 6,
     progress_callback: Optional[Callable] = None,
     progress_every: int = 5,
-    max_steps_per_dispatch: int = 50,
     resume_state: Optional[SamplingState] = None,
     return_state: bool = False,
     stop_after: Optional[int] = None,
-    chunk_times: Optional[list] = None,
-    deadline: Optional[float] = None,
 ):
     """Run the full guided trajectory -> (final_images, frames): the final
     pred_x0 in [-1, 1] NHWC and `num_frames` evenly spaced pred_x0 frames
@@ -500,23 +451,9 @@ def guided_sample(
     frames before that position stay zero); with `draws=None` the draws
     are rebuilt from its key on `pipe.device`, and draws under another key
     raise.  `stop_after` runs at most that many steps; `return_state=True`
-    also returns the `SamplingState` after the last executed step.
-
-    Phase-segmented only (`pipe.sampler.phase_segmented`), as in the JAX
-    package: the steps run in chunks of at most `max_steps_per_dispatch`
-    within each phase (the module docstring says why the result does not
-    change); `chunk_times`, a list, receives `(slot_caps, n_steps,
-    seconds)` per chunk, the device synchronized after each; `deadline`, a
-    `time.time()` value, raises `DeadlineExceeded` when it has passed
-    before a chunk.  The padded loop is one chunk: `deadline` raises
-    ValueError there, and `chunk_times` and `max_steps_per_dispatch` are
-    ignored."""
+    also returns the `SamplingState` after the last executed step."""
     with annotate("guided.sample"):
         cfg, sampler = pipe.config, pipe.sampler
-        if not sampler.phase_segmented:
-            if deadline is not None:
-                raise ValueError("deadline requires phase_segmented sampling")
-            chunk_times = None
         shape = (batch_size, cfg.height, cfg.width, 3)
         if resume_state is not None:
             saved = np.asarray(resume_state.key_data, np.uint32)
@@ -550,25 +487,14 @@ def guided_sample(
             end_pos = n_steps if stop_after is None else min(n_steps, start_pos + stop_after)
             plms = history if sampler.mode == "plms" else None
             frames = torch.zeros((n_frames,) + shape, dtype=torch.float32, device=pipe.device)
-            chunks = (_phase_chunks(pipe, n_steps, start_pos, end_pos, max_steps_per_dispatch)
-                      if sampler.phase_segmented else [(None, range(start_pos, end_pos))])
-            for caps, positions in chunks:
-                if deadline is not None and time.time() > deadline:
-                    raise DeadlineExceeded(f"bench deadline passed before chunk at caps={caps}")
-                t0 = time.perf_counter()
-                for pos in positions:
-                    with annotate("guided.step"):
-                        x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image,
-                                                 plms, caps)
-                        if table[pos] >= 0:
-                            frames[table[pos]] = pred_x0
-                        if progress_callback is not None and pos % progress_every == 0:
-                            with annotate("guided.progress"):
-                                progress_callback(pos, pred_x0)
-                if chunk_times is not None:
-                    if pipe.device.type == "cuda":
-                        torch.cuda.synchronize(pipe.device)
-                    chunk_times.append((caps, len(positions), time.perf_counter() - t0))
+            for pos in range(start_pos, end_pos):
+                with annotate("guided.step"):
+                    x, pred_x0 = guided_step(pipe, tables, x, start - pos, draws, init_image, plms)
+                    if table[pos] >= 0:
+                        frames[table[pos]] = pred_x0
+                    if progress_callback is not None and pos % progress_every == 0:
+                        with annotate("guided.progress"):
+                            progress_callback(pos, pred_x0)
         if return_state:
             state = SamplingState(x=x, step=start - end_pos, eps_history=history.eps,
                                   history_count=history.count, key_data=draws.key_data())

@@ -32,7 +32,6 @@ Each CFG step of `latent_sample` is a `latent.step` span
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -124,21 +123,12 @@ def latent_sample(
     order: int = 2,
     x0_latent=None,
     mask=None,
-    max_steps_per_dispatch: Optional[int] = None,
-    chunk_times: Optional[list] = None,
 ):
     """Run the CFG latent diffusion loop -> final latents (B, h, w, C)
     float32.  `context_cond`/`context_uncond`: (B, 77, D) text
     conditioning, or (context, vector) pairs; CFG is off when `context_uncond` is None or
     `guidance_scale` <= 0 (one forward per step).  `x0_latent` (B, h, w, C)
-    with `mask` (B, h, w, 1) inpaints.
-
-    `max_steps_per_dispatch` and `chunk_times` are kept for parity with the
-    JAX package, where a chunk is one compiled dispatch.  The port runs
-    every step eagerly, so chunks change nothing it computes: when
-    `max_steps_per_dispatch` is below `steps`, `chunk_times`, a list,
-    receives `(n_steps, seconds)` per chunk of at most that many steps, the
-    device synchronized after each."""
+    with `mask` (B, h, w, 1) inpaints."""
     if mode not in ("ddim", "plms"):
         raise ValueError(f"unknown sample mode {mode!r}")
     if mode == "plms":
@@ -156,12 +146,7 @@ def latent_sample(
 
     x = draws.initial_noise(shape).to(device=device, dtype=torch.float32)
     hist, count = init_history(shape, device), 0
-    chunk = steps if max_steps_per_dispatch is None else max_steps_per_dispatch
-    if chunk < 1:
-        raise ValueError(f"max_steps_per_dispatch must be at least 1, got {chunk}")
-    timed = chunk_times is not None and chunk < steps
-    t0 = time.perf_counter()
-    for n, i in enumerate(range(steps - 1, -1, -1)):
+    for i in range(steps - 1, -1, -1):
         with annotate("latent.step"):
             a, a_prev = tables["alphas"][i], tables["alphas_prev"][i]
             sqrt_1ma, sigma = tables["sqrt_one_minus_alphas"][i], tables["sigmas"][i]
@@ -181,11 +166,6 @@ def latent_sample(
             x = torch.sqrt(a_prev) * pred_x0 + dir_xt
             if eta > 0:
                 x = x + sigma * draws.step_noise(i, shape).to(device)
-            if timed and ((n + 1) % chunk == 0 or i == 0):
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                chunk_times.append(((n % chunk) + 1, time.perf_counter() - t0))
-                t0 = time.perf_counter()
     return x
 
 

@@ -10,7 +10,7 @@ schedule (14, 2) x 50 steps, (12, 4) x 50, (4, 2) x 100, (0, 12) x 50), `unet` (
 resolution level's ResBlock and AttentionBlock alone at its shape, forward
 + backward, with FLOPs counted by `torch.utils.flop_counter` and the
 achieved rate against the card's dense bf16 peak), `unet_remat` (the whole
-UNet's forward + backward under remat "full", "dots" and off, with each
+UNet's forward + backward under remat ("full") and without, with each
 one's peak memory; an out-of-memory error is a data point),
 `phase_blocks` (one phase's step beside its parts: cutouts, each tower,
 UNet, threshold), `cutouts`, `sampler` (mode B's threshold) and `clip`
@@ -148,9 +148,9 @@ def _counts(pipe: GuidedPipeline, step: int):
     return int(ov[idx]), int(inn[idx]), float(power[idx]), float(gray[idx])
 
 
-def _step_run(pipe: GuidedPipeline, step: int, caps, k: int) -> Callable:
-    """K chained guided steps at respaced step `step` and `caps` from the
-    probe image."""
+def _step_run(pipe: GuidedPipeline, step: int, k: int) -> Callable:
+    """K chained guided steps at respaced step `step` from the probe
+    image."""
     tables = schedule_tables(pipe.schedule, pipe.device)
     draws = TorchDraws(0, pipe.device)
     x0 = _probe(pipe)
@@ -160,7 +160,7 @@ def _step_run(pipe: GuidedPipeline, step: int, caps, k: int) -> Callable:
         history = (PLMSHistory(init_history(x.shape, pipe.device))
                    if pipe.sampler.mode == "plms" else None)
         for _ in range(k):
-            x, _ = guided_step(pipe, tables, x, step, draws, None, history, caps)
+            x, _ = guided_step(pipe, tables, x, step, draws, None, history)
         return x
 
     return run
@@ -183,7 +183,7 @@ def section_phases(pipe: GuidedPipeline, timer: Timer) -> None:
     if pipe.config.cutout_schedules == CutoutSchedules() and _steps(pipe) == 250:
         check_jax_phases(segments)
     counted = [(timer(f"step_phase_{caps[0]}ov_{caps[1]}in",
-                      _step_run(pipe, int(steps[0]), caps, timer.k),
+                      _step_run(pipe, int(steps[0]), timer.k),
                       first_step=int(steps[0]), steps=len(steps)), len(steps))
                for steps, caps in segments]
     weighted = {"ms": sum(e["ms_per_iter"] * n for e, n in counted),
@@ -275,14 +275,13 @@ def section_unet_blocks(pipe: GuidedPipeline, timer: Timer) -> None:
 
 
 def section_unet_remat(pipe: GuidedPipeline, timer: Timer) -> None:
-    """The whole UNet's forward + backward under remat "full", "dots" and
-    off, each a UNetModel built on `meta` that takes the pipeline UNet's
+    """The whole UNet's forward + backward under remat ("full") and
+    without, each a UNetModel built on `meta` that takes the pipeline UNet's
     own tensors (no copy); on a card, each one's peak memory above what was
     allocated before it."""
     x = _probe(pipe)
     weights = pipe.unet.state_dict()
-    for label, kw in (("remat_full", dict(remat=True, remat_policy="full")),
-                      ("remat_dots", dict(remat=True, remat_policy="dots")),
+    for label, kw in (("remat_full", dict(remat=True)),
                       ("remat_off", dict(remat=False))):
         with torch.device("meta"):
             model = UNetModel(dataclasses.replace(pipe.unet.config, **kw))
@@ -315,7 +314,7 @@ def _cuts_run(pipe: GuidedPipeline, step: int, caps, k: int, resolution: int):
     if (n_ov, n_in) != tuple(caps):
         raise ValueError(f"step {step} schedules ({n_ov}, {n_in}) cutouts, not {tuple(caps)}")
     cfg = pipe.config
-    spec = pipe.cutout_spec(resolution, caps)
+    spec = pipe.cutout_spec(resolution)
     draws = TorchDraws(0, pipe.device).cutouts(step, 0, 1, cfg.num_cutout_batches, spec,
                                                n_ov, n_in)
     x = _probe(pipe)
@@ -392,7 +391,7 @@ def section_phase_blocks(pipe: GuidedPipeline, timer: Timer,
     if not phase:
         raise ValueError(f"the schedule has no phase with caps {caps}")
     step = phase[0]
-    whole = timer(f"whole_step_{caps[0]}ov_{caps[1]}in", _step_run(pipe, step, caps, timer.k))
+    whole = timer(f"whole_step_{caps[0]}ov_{caps[1]}in", _step_run(pipe, step, timer.k))
     parts = []
     n, run = _cuts_run(pipe, step, caps, timer.k, pipe.perceptors[0].input_resolution)
     parts.append(timer(f"cutouts_{n}_fwd_bwd", run))

@@ -1,10 +1,9 @@
-"""The port's dispatch layer against the JAX package, on the CPU: the
-phase segments, the phase-segmented guided trajectory (JAX draws replayed
-through the caps-sized cutout layout), the ensemble's slot caps and the UNet's remat policies
-(tests/test_torch_dispatch_chunks.py holds the runner's chunks against
-the port itself: segmented = padded under keyed draws, chunk times,
-resume, the deadline, and the chunked latent loop).  The tiny pipeline's cutout schedule has two phases (overview
-4 then 1, inner 1 then 3), as tests/test_segmented.py's."""
+"""The guided step loop across the cutout schedule's phases, on the CPU:
+the phase segments and the whole two-phase trajectory against the JAX
+package (its draws replayed), the progress callback, frames and resume
+across the phase boundary, the ensemble's step at world size 1, and the
+UNet's remat.  The tiny pipeline's cutout schedule has two phases
+(overview 4 then 1, inner 1 then 3), as tests/test_segmented.py's."""
 
 import dataclasses
 
@@ -32,6 +31,7 @@ from test_torch_parallel import jax_tiny_pipeline
 
 STEPS = 10
 PHASES = dict(overview=((4, 1), (500, 500)), inner=((1, 3), (500, 500)))
+BOUNDARY = 5  # the first position of the second phase
 
 
 @pytest.fixture(autouse=True)
@@ -63,16 +63,14 @@ def phase_pipelines():
     ViT tower on the same weights, 10 DDIM steps, the two-phase schedule."""
     torch.set_num_threads(1)
     jpipe, jparams, models = jax_tiny_pipeline(STEPS)
-    jpipe = dataclasses.replace(
-        jpipe, config=jtiny_config(cutout_schedules=_jax_phases()),
-        sampler=JSamplerConfig(mode="ddim", steps=STEPS, eta=0.8, phase_segmented=True))
+    jpipe = dataclasses.replace(jpipe, config=jtiny_config(cutout_schedules=_jax_phases()))
     return jpipe, jparams, models
 
 
-def _port_pipe(models, segmented=True):
+def _port_pipe(models, mode="ddim"):
     """The port's pipeline on `models` with the two-phase schedule."""
     cfg = dataclasses.replace(tiny_port_config(), cutout_schedules=_port_phases())
-    sampler = SamplerConfig(steps=STEPS, eta=0.8, phase_segmented=segmented)
+    sampler = SamplerConfig(mode=mode, steps=STEPS, eta=0.8)
     return tzoo.build_pipeline(models, cfg, [("a test prompt", 1.0)], sampler)
 
 
@@ -110,22 +108,20 @@ def test_compute_phase_segments_matches_jax(case):
     assert np.concatenate([s for s, _ in got]).tolist() == list(range(n_steps - 1, -1, -1))
     if case.startswith("two phases"):
         assert [caps for _, caps in got] == [(4, 1), (1, 3)]
+        assert [len(s) for s, _ in got] == [BOUNDARY, STEPS - BOUNDARY]
 
 
-def test_segmented_trajectory_matches_jax(phase_pipelines):
-    """The whole 10-step segmented trajectory, both phases and the hand-over
-    between them, against JAX guided_sample with phase_segmented=True, the
-    JAX draws replayed from each step's caps-sized slot layout: the
-    histogram threshold's trajectory tolerance, 2e-4 (test_torch_guided.
-    test_five_step_trajectory_matches), and the same dispatch chunks."""
+@pytest.mark.parametrize("mode", ["ddim", "plms"])
+def test_trajectory_across_phases_matches_jax(phase_pipelines, mode):
+    """The whole 10-step trajectory, both phases and the hand-over between
+    them, against the JAX package's guided_sample with its draws replayed
+    from the schedule maxima's slot layout: the trajectory tolerance of
+    test_torch_guided (DDIM) and test_torch_init_plms (PLMS), 2e-4."""
     jpipe, jparams, models = phase_pipelines
+    jpipe = dataclasses.replace(jpipe, sampler=JSamplerConfig(mode=mode, steps=STEPS, eta=0.8))
     key = jax.random.PRNGKey(3)
-    jtimes, ttimes = [], []
-    jfinal, jframes = jg.guided_sample(jpipe, jparams, key, chunk_times=jtimes)
-    tfinal, tframes = tg.guided_sample(_port_pipe(models), JaxReplayDraws(key),
-                                       chunk_times=ttimes)
-    assert ([(c, n) for c, n, _ in ttimes] == [(c, n) for c, n, _ in jtimes]
-            == [((4, 1), 5), ((1, 3), 5)])
+    jfinal, jframes = jg.guided_sample(jpipe, jparams, key)
+    tfinal, tframes = tg.guided_sample(_port_pipe(models, mode), JaxReplayDraws(key))
     assert tframes.shape == np.asarray(jframes).shape == (6, 1, 64, 64, 3)
     assert np.isfinite(tframes.numpy()).all()
     assert tframes.abs().amin(dim=(1, 2, 3, 4)).lt(1).all()
@@ -133,84 +129,94 @@ def test_segmented_trajectory_matches_jax(phase_pipelines):
     np.testing.assert_allclose(tfinal.numpy(), np.asarray(jfinal), atol=2e-4)
 
 
-def test_slot_caps_must_hold_the_scheduled_cuts(phase_pipelines):
+def test_progress_and_frames_across_phases(phase_pipelines, monkeypatch):
+    """The progress callback fires at every progress_every-th position and
+    each frame holds the pred_x0 of its frame_table position, on both sides
+    of the phase boundary."""
     _, _, models = phase_pipelines
-    pipe = _port_pipe(models)
-    tables = schedule_tables(pipe.schedule)
-    x = torch.zeros((1, 64, 64, 3))
-    with pytest.raises(ValueError, match=r"schedules \(4, 1\) cutouts"):
-        tg.guided_step(pipe, tables, x, 9, tg.TorchDraws(0, "cpu"), slot_caps=(1, 3))
+    preds = []
+    step = tg.guided_step
+
+    def recorded(*args, **kwargs):
+        out = step(*args, **kwargs)
+        preds.append(out[1].clone())
+        return out
+
+    monkeypatch.setattr(tg, "guided_step", recorded)
+    seen = []
+    final, frames = tg.guided_sample(
+        _port_pipe(models), tg.TorchDraws(5, "cpu"), progress_every=3,
+        progress_callback=lambda pos, pred: seen.append((pos, pred.clone())))
+    assert len(preds) == STEPS
+    assert [pos for pos, _ in seen] == [0, 3, 6, 9]
+    assert all(torch.equal(pred, preds[pos]) for pos, pred in seen)
+    table, n_frames = tg.frame_table(STEPS, 6)
+    positions = np.flatnonzero(table >= 0).tolist()
+    assert positions == [0, 1, 3, 5, 7, 9] and n_frames == frames.shape[0] == 6
+    assert min(positions) < BOUNDARY <= max(positions)
+    assert all(torch.equal(frames[table[pos]], preds[pos]) for pos in positions)
+    assert torch.equal(final, preds[-1])
 
 
-def test_ensemble_slot_caps_at_world_size_1(phase_pipelines):
-    """The ensemble's step with slot caps, in this process (world size 1),
-    equals guided_step with the same caps bit for bit, the JAX draws
-    replayed.  Those depend on the caps where the overview cap is below the
-    schedule's maximum (the inner slots' keys follow the overview slots):
-    at step 2, caps (1, 3), the padded layout's draws give another step."""
+@pytest.mark.parametrize("step", [7, 2], ids=["phase 1 step", "phase 2 step"])
+def test_ensemble_at_world_size_1_equals_guided_step(phase_pipelines, step):
+    """The ensemble's step in this process (world size 1, no process group)
+    equals guided_step bit for bit in each phase, the JAX draws replayed."""
     _, _, models = phase_pipelines
     pipe = _port_pipe(models)
     tables = schedule_tables(pipe.schedule)
     draws = JaxReplayDraws(jax.random.PRNGKey(6))
     x = draws.initial_noise((1, 64, 64, 3))
-    step_fn = tens.build_ensemble_guided_step(pipe, slot_caps=(1, 3))
-    got = step_fn(tables, x, 2, draws)
-    want = tg.guided_step(pipe, tables, x, 2, draws, slot_caps=(1, 3))
+    got = tens.build_ensemble_guided_step(pipe)(tables, x, step, draws)
+    want = tg.guided_step(pipe, tables, x, step, draws)
+    assert torch.isfinite(got[0]).all()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    padded = tg.guided_step(pipe, tables, x, 2, draws)
-    assert float((got[0] - padded[0]).abs().max()) > 1e-4
 
 
-# ---------------- the UNet's remat policies ----------------
+@pytest.mark.parametrize("mode", ["ddim", "plms"])
+def test_resume_across_a_phase_boundary(phase_pipelines, mode):
+    """5 + 1 steps through a SamplingState (the phase boundary lies at
+    position 5) equal the straight 6 bit for bit, PLMS's history carried."""
+    pipe = _port_pipe(phase_pipelines[2], mode)
+    stop = BOUNDARY + 1
+    _, straight_frames, straight = tg.guided_sample(pipe, tg.TorchDraws(5, "cpu"),
+                                                    stop_after=stop, return_state=True)
+    _, _, state = tg.guided_sample(pipe, tg.TorchDraws(5, "cpu"), stop_after=BOUNDARY,
+                                   return_state=True)
+    assert state.step == STEPS - 1 - BOUNDARY
+    _, frames, state = tg.guided_sample(pipe, None, resume_state=state, stop_after=1,
+                                        return_state=True)
+    assert state.step == straight.step == STEPS - 1 - stop
+    assert torch.equal(state.x, straight.x)
+    assert torch.equal(state.eps_history, straight.eps_history)
+    assert state.history_count == straight.history_count == (stop if mode == "plms" else 0)
+    assert torch.equal(frames[3], straight_frames[3])  # position 5, after the resume
 
-@pytest.fixture(scope="module")
-def remat_runs():
-    """Output and input gradient of the tiny UNet (attention at ds 2) under
-    each remat setting, on the same weights and inputs."""
+
+# ---------------- the UNet's remat ----------------
+
+def test_remat_equals_no_remat():
+    """The tiny UNet (attention at ds 2) under remat gives the output and
+    input gradient it gives without, bit for bit, on the same weights."""
     torch.manual_seed(0)
     base = tunet.UNetConfig.tiny(32)
     weights = tunet.UNetModel(base).state_dict()
     x0 = torch.randn(2, 32, 32, 3)
     t = torch.tensor([500.0, 20.0])
-    runs = {}
-    for label, kw in (("off", dict(remat=False)), ("full", dict(remat=True)),
-                      ("dots", dict(remat=True, remat_policy="dots"))):
-        model = tunet.UNetModel(dataclasses.replace(base, **kw))
+    runs = []
+    for remat in (False, True):
+        model = tunet.UNetModel(dataclasses.replace(base, remat=remat))
         model.load_state_dict(weights)
         x = x0.clone().requires_grad_(True)
         out = model(x, t)
         (grad,) = torch.autograd.grad((out ** 2).sum(), x)
-        runs[label] = (out.detach(), grad)
-    return runs
-
-
-@pytest.mark.parametrize("label", ["full", "dots"])
-def test_remat_policies_equal_no_remat(remat_runs, label):
-    out, grad = remat_runs[label]
-    want_out, want_grad = remat_runs["off"]
+        runs.append((out.detach(), grad))
+    (want_out, want_grad), (out, grad) = runs
     assert float(want_grad.abs().max()) > 0
     assert torch.equal(out, want_out) and torch.equal(grad, want_grad)
 
 
-def test_dots_policy_saves_matmuls_and_convolutions(monkeypatch):
-    """Under "dots" the policy keeps mm/addmm/convolution outputs and
-    recomputes the attention's bmm; an unknown policy raises."""
-    seen = {}
-    policy = tunet._dots_policy
-
-    def spy(ctx, op, *args, **kwargs):
-        seen[op] = decision = policy(ctx, op, *args, **kwargs)
-        return decision
-
-    monkeypatch.setattr(tunet, "_dots_policy", spy)
-    model = tunet.UNetModel(dataclasses.replace(tunet.UNetConfig.tiny(32), remat=True,
-                                                remat_policy="dots"))
-    x = torch.randn(1, 32, 32, 3, requires_grad=True)
-    torch.autograd.grad(model(x, torch.tensor([10.0])).sum(), x)
-    aten = torch.ops.aten
-    saved = {op for op, d in seen.items() if d == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE}
-    assert aten.convolution.default in saved
-    assert saved & {aten.mm.default, aten.addmm.default}
-    assert aten.bmm.default in seen and aten.bmm.default not in saved
-    with pytest.raises(ValueError, match="unknown remat_policy 'offload'"):
-        tunet.UNetConfig(remat_policy="offload")
+@pytest.mark.parametrize("policy", ["dots", "offload"])
+def test_unet_config_refuses_remat_policy(policy):
+    with pytest.raises(ValueError, match=f"unknown remat_policy '{policy}'"):
+        tunet.UNetConfig(remat_policy=policy)

@@ -111,7 +111,7 @@ def test_profile_step_sections():
         "step_phase_4ov_1in", "step_phase_1ov_3in", "phases_weighted",
         "unet_fwd", "unet_fwd_bwd",
         "L0_res_64px_32to32", "L1_res_32px_32to64", "L1_attn_32px_64to64",
-        "unet_fwdbwd_remat_full", "unet_fwdbwd_remat_dots", "unet_fwdbwd_remat_off",
+        "unet_fwdbwd_remat_full", "unet_fwdbwd_remat_off",
         "whole_step_1ov_3in", "cutouts_4_fwd_bwd", "clip_tiny0_fwdbwd_4", "threshold_histogram",
         "sum_blocks_vs_whole", "cutouts_5_fwd_bwd", "clip_tiny0_fwdbwd_5", "device"}
     assert set(res) == expected
