@@ -40,6 +40,9 @@ Phases, each announced on its own line; any failure exits non-zero:
    three ViT perceptors, 4 cutout batches;
 8. default request: `guided_diffusion_sample` with the default `Config`:
    768x512, the four perceptors, 4 cutout batches, DDIM, eta 0.8, 10 steps;
+   then the four bf16 towers' chunks replayed from their CUDA graphs
+   against the eager body bit for bit (24 cuts: chunks of 16 and 8), and
+   the replays of one traced guided step at each step's cut count;
 9. init-image path: an init PNG made here from a seeded array, PLMS, 20
    steps with 10 skipped, the aesthetic and MS-SSIM terms on and LPIPS at
    its default scale, at 768x512;
@@ -830,10 +833,70 @@ def run_path(label: str, models: ZooModels, executed: int, shape, out_dir: str,
             "launches": launches, "image": result["images"][0]}
 
 
+def check_tower_graphs(dev, models: ZooModels, config: Config) -> dict:
+    """The towers of `models` at `config`'s widths through
+    `pipeline/guided._cut_gradient`: each tower's chunks replayed from its
+    CUDA graphs give the eager body's gradient bit for bit (the eager
+    reference: the same towers behind lambdas, which never capture), at 24
+    cuts, so in chunks of 16 and 8; then one step at the top of a 10-step
+    schedule, captured once and replayed under a profile, holds one
+    `guided.tower.replay` span per tower chunk."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_diffusion_tpu_torch.utils import profiling
+
+    pipe = build_pipeline(models, config, [(PROMPT, 1.0)], SamplerConfig(steps=10))
+    eager = dataclasses.replace(pipe, perceptors=tuple(
+        dataclasses.replace(p, embed_image=lambda x, f=p.embed_image: f(x))
+        for p in pipe.perceptors))
+    members = list(range(len(pipe.perceptors)))
+    gen = torch.Generator(dev).manual_seed(18)
+    res = pipe.perceptors[0].input_resolution
+    normed = torch.randn((1, 24, res, res, 3), generator=gen, device=dev).to(
+        config.guidance_torch_dtype)
+    weights = torch.rand((1, 24), generator=gen, device=dev)
+    with torch.enable_grad():
+        want = guided_mod._cut_gradient(eager, members, normed, weights)
+        gaps = []
+        for _ in range(2):  # the capturing call (if any key is new) and a replay
+            got = guided_mod._cut_gradient(pipe, members, normed, weights)
+            gaps.append((got - want).abs().max().item())
+            if not torch.equal(got, want):
+                raise AssertionError(f"tower graphs: graphed gradient differs by {gaps}")
+
+    tables = schedule_tables(pipe.schedule, dev)
+    top = pipe.schedule.num_steps - 1
+    draws = TorchDraws(18, dev)
+    x = draws.initial_noise((1, config.height, config.width, 3))
+    guided_step(pipe, tables, x, top, draws)  # captures the step's chunk shapes
+    recorder, profiling._RECORDER = profiling._RECORDER, profiling.Recorder()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            guided_step(pipe, tables, x, top, draws)
+            torch.cuda.synchronize()
+        replays = sum(1 for sp in profiling.spans() if sp.name == "guided.tower.replay")
+    finally:
+        profiling._RECORDER = recorder
+    ov_t, in_t, _, _ = config.cutout_schedules.as_arrays()
+    idx = guided_mod.schedule_index(pipe.schedule, top)
+    n_cuts = (int(ov_t[idx]) + int(in_t[idx])) * config.num_cutout_batches
+    expected = len(members) * -(-n_cuts // config.clip_cut_chunk)
+    graphs = {name: sum(e is not None for e in m._graphs.values())
+              for name, m in models.clips.items()}
+    print(f"tower graphs: {len(members)} towers graphed = eager bit for bit at 24 cuts (chunks "
+          f"16 and 8; largest gaps {gaps}); {replays} replays in a step of {n_cuts} cuts "
+          f"(expected {expected}); captured keys {graphs}", flush=True)
+    if replays != expected:
+        raise AssertionError(f"tower graphs: {replays} replays a step, expected {expected}")
+    return {"replays_per_step": replays, "graphs": graphs}
+
+
 def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
     """The init-image path at 768x512: PLMS, 20 steps with 10 skipped, the
     aesthetic heads of the three ViTs, MS-SSIM and LPIPS.  Hooks count, per
-    executed step, the LPIPS, MS-SSIM and aesthetic-head evaluations."""
+    executed step, the LPIPS, MS-SSIM and aesthetic-head evaluations; a
+    head inside a replayed tower graph runs no hook, so a replay of a
+    chunk whose loss reads a head counts for that head."""
     config = Config(aesthetic_scale=500.0, MS_SSIM_scale=1000.0)  # LPIPS_scale: default 1000
     rng = np.random.default_rng(11)
     coarse = rng.uniform(0, 255, (config.height // 32, config.width // 32, 3))
@@ -856,7 +919,16 @@ def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
         seen["ms_ssim"].add(len(step_of))
         return ms_ssim(*args)
 
+    replayed = guided_mod._replayed_gradient
+
+    def counted_replay(tower, perc, cfg, chunk, w):
+        g = replayed(tower, perc, cfg, chunk, w)
+        if g is not None and perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
+            seen[f"aesthetic {perc.name}"].add(len(step_of))
+        return g
+
     guided_mod.structural_dissimilarity_loss = counted_ms_ssim
+    guided_mod._replayed_gradient = counted_replay
     sampler = SamplerConfig(mode="plms", steps=20, skip_timesteps=10)
     try:
         run = run_path("init-image path", models, 10, (config.height, config.width, 3), out_dir,
@@ -864,6 +936,7 @@ def run_init_path(zoo: ZooModels, out_dir: str) -> dict:
                        skip_timesteps=sampler.skip_timesteps, config=config)
     finally:
         guided_mod.structural_dissimilarity_loss = ms_ssim
+        guided_mod._replayed_gradient = replayed
         for h in hooks:
             h.remove()
     every = set(range(1, 11))
@@ -2118,6 +2191,7 @@ def main(argv=None) -> int:
     by_path["default request"] = run_path(
         "default request", default_models, args.steps, (default.height, default.width, 3),
         os.path.join(args.out, "default"), steps=args.steps)["launches"]  # no config: Config()
+    check_tower_graphs(dev, default_models, default)
 
     phase("init-image path", t_start)
     by_path["init-image path"] = run_init_path(zoo, os.path.join(args.out, "init"))["launches"]

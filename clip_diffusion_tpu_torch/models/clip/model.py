@@ -34,6 +34,7 @@ Names follow the OpenAI checkpoints (`visual.layer1.0.downsample.0.weight`,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -365,8 +366,14 @@ class ModifiedResNet(nn.Module):
         return self.attnpool(x)
 
 
+def _drop_graphs(model, _incompatible_keys=None):
+    model._graphs.clear()
+
+
 class CLIPModel(nn.Module):
-    """Both towers: `encode_image` and `encode_text`."""
+    """Both towers: `encode_image` and `encode_text`.  `_graphs` holds the
+    guided pipeline's CUDA graphs of this tower's chunks
+    (`pipeline/guided._cut_gradient`)."""
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
@@ -377,6 +384,15 @@ class CLIPModel(nn.Module):
         self.transformer = Transformer(cfg.text_width, cfg.text_layers, cfg.text_heads, cfg.dtype)
         self.ln_final = LayerNormF32(cfg.text_width)
         self.text_projection = nn.Parameter(torch.empty(cfg.text_width, cfg.embed_dim))
+        # chunk key -> captured graph (or None: that key runs eagerly), least
+        # recently used first; a graph reads the parameters' storage as
+        # captured: loading with assign=True or `.to()` moves it, so both drop them
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
+        self.register_load_state_dict_post_hook(_drop_graphs)
+
+    def _apply(self, fn, *args, **kwargs):
+        _drop_graphs(self)
+        return super()._apply(fn, *args, **kwargs)
 
     def encode_image(self, images):
         """CLIP-normalized NHWC images -> (B, embed_dim) float32."""

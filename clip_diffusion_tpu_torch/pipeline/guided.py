@@ -25,6 +25,26 @@ those gradients, with the image losses, through the cutouts and the UNet
 to x.  The gradient is the one-backward gradient, and no tower holds more
 than one chunk's activations.
 
+On CUDA a CLIP tower's chunk (its forward, the loss and the gradient to
+the cuts) replays a CUDA graph: about a thousand small launches a chunk
+cost the host more than the device's work.  A tower (`CLIPModel._graphs`)
+keeps a graph per key (`tower_graph_key`), at most
+`TOWER_GRAPHS_PER_MODEL`, the least recently used dropped first; moving
+its weights (`.to()`, `load_state_dict`) drops them.  A key is captured on
+its first call (two warm-up runs on a side stream, then the capture),
+every graph of a device in one memory pool.  The graphs of one chunk shape
+read one static leaf: the cuts are copied in before a replay and the
+graph writes their gradient back into it; the prompt embeddings and
+weights and the cut weights are copied in too, so a new prompt reuses the
+graph.  A graph's scratch stays in the pool for the graph's life, where
+the step's eager work cannot reuse it, so a key runs eagerly instead where
+its warm-up made the allocator free cached blocks to find room, or where
+the device's free memory no longer holds the warm-up's peak above what
+was allocated (the key's scratch) once the warm-up is done; a capture
+therefore resets the device's peak memory statistics.  The CPU, and
+towers that are not `CLIPModel`s, run the eager body.  One caller at a
+time per device: the replays read the device's static buffers.
+
 Randomness comes from a `draws` object: `initial_noise`, `step_noise` and
 `cutouts` (the per-slot crop, flip, noise, affine, gray and jitter values).
 `TorchDraws` draws them, and the latent pipeline's `inpaint_noise`, from a
@@ -40,16 +60,18 @@ make the resumed steps draw what the uninterrupted run drew.
 Spans (`utils.profiling.annotate`, recorded while a profile collects):
 `guided.sample` around a `guided_sample` call, `guided.step` per
 position, inside it `guided.unet` (the forward and pred_x0),
-`guided.cutouts` per perceptor group, `guided.tower` per perceptor,
-`guided.backward` (the one backward to x) and `guided.update` (clamp,
-step noise, threshold, update), and `guided.progress` around the
-progress callback.
+`guided.cutouts` per perceptor group, `guided.tower` per perceptor (in
+it `guided.tower.replay` around each graph replay), `guided.backward`
+(the one backward to x) and `guided.update` (clamp, step noise,
+threshold, update), and `guided.progress` around the progress callback.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,13 +106,14 @@ from clip_diffusion_tpu_torch.guidance.losses import (
     structural_dissimilarity_loss,
     total_variational_loss,
 )
-from clip_diffusion_tpu_torch.models.clip.model import clip_normalize
+from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, clip_normalize
 from clip_diffusion_tpu_torch.models.unet import split_model_output
 from clip_diffusion_tpu_torch.ops.augment import AugmentDraws
 from clip_diffusion_tpu_torch.ops.quantile import dynamic_threshold_fast
 from clip_diffusion_tpu_torch.utils.checkpoint import SamplingState
 from clip_diffusion_tpu_torch.utils.profiling import annotate
 
+TOWER_GRAPHS_PER_MODEL = 8  # captured chunk keys a CLIP tower keeps
 
 @dataclasses.dataclass(frozen=True)
 class Perceptor:
@@ -231,9 +254,9 @@ def perceptor_groups(pipe: GuidedPipeline, subset: Optional[Sequence[int]] = Non
     return [(gi, res, members) for gi, (res, members) in enumerate(groups.items())]
 
 
-def _prompt_distance(embs, perc: Perceptor):
-    """(B, n, D) cut embeddings -> (B, n) prompt-weighted spherical distance."""
-    te, tw = perc.text_embeddings, perc.text_weights
+def _prompt_distance(embs, te, tw):
+    """(B, n, D) cut embeddings -> (B, n) distance to the prompt embeddings
+    `te` (P, D) or (B, P, D), weighted by `tw` (P,) or (B, P)."""
     if te.ndim == 3:
         d = square_spherical_distance_loss(embs[:, :, None, :], te[:, None, :, :])
         return torch.sum(d * tw[:, None, :], dim=-1)
@@ -241,26 +264,170 @@ def _prompt_distance(embs, perc: Perceptor):
     return torch.sum(d * tw[None, None, :], dim=-1)
 
 
+def _chunk_gradient(perc: Perceptor, cfg: Config, leaf, w, te, tw):
+    """Gradient of one chunk's CLIP (and aesthetic) loss with respect to
+    `leaf`, its (B, c, S, S, 3) normalized cuts: prompt embeddings `te`,
+    weights `tw`, cut weights `w` (B, c)."""
+    b, c = leaf.shape[:2]
+    embs = perc.embed_image(leaf.reshape((-1,) + leaf.shape[2:])).reshape(b, c, -1)
+    loss = cfg.clip_guidance_scale * torch.sum(w * _prompt_distance(embs, te, tw))
+    if perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
+        scores = perc.aesthetic_fn(l2_normalize(embs, dim=-1))[..., 0]
+        loss = loss - cfg.aesthetic_scale * torch.sum(w * scores)
+    (g,) = torch.autograd.grad(loss, leaf)
+    return g
+
+
+def tower_graph_key(perc: Perceptor, cfg: Config, chunk, w) -> tuple:
+    """What a tower's captured chunk graph holds fixed (the tower itself
+    keys the store, `CLIPModel._graphs`): the chunk's and its weights'
+    shapes, dtypes and device, the prompt embeddings' and weights' shapes
+    and dtypes, and the loss's constants with the aesthetic head it reads."""
+    te, tw = perc.text_embeddings, perc.text_weights
+    head = perc.aesthetic_fn if cfg.aesthetic_scale > 0 else None
+    return (tuple(chunk.shape), chunk.dtype, chunk.device, tuple(w.shape), w.dtype,
+            tuple(te.shape), te.dtype, tuple(tw.shape), tw.dtype,
+            float(cfg.clip_guidance_scale), float(cfg.aesthetic_scale), head)
+
+
+@dataclasses.dataclass
+class _ChunkGraph:
+    """A captured chunk: its graph and the static buffers it reads; `leaf`
+    holds the cuts before a replay and their gradient after it."""
+
+    graph: "torch.cuda.CUDAGraph"
+    leaf: torch.Tensor
+    w: torch.Tensor
+    te: torch.Tensor
+    tw: torch.Tensor
+
+
+class _DeviceGraphs:
+    """What the chunk graphs of one device share: the memory pool and the
+    side stream of every capture, and one static leaf (and cut weights)
+    per chunk shape, which every tower's graph of that shape reads."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: weakref.WeakSet = weakref.WeakSet()  # the live graphs, holding the pool
+        self.buffers: Dict[tuple, torch.Tensor] = {}
+
+    def pool(self):
+        """The live graphs' pool, or a new one once they are all gone (their
+        pool then goes back to the allocator and takes no other capture)."""
+        for graph in self.graphs:
+            return graph.pool()
+        return torch.cuda.graph_pool_handle()
+
+    def buffer(self, like: torch.Tensor) -> torch.Tensor:
+        key = (tuple(like.shape), like.dtype)
+        if key not in self.buffers:
+            self.buffers[key] = torch.zeros(like.shape, dtype=like.dtype, device=like.device)
+        return self.buffers[key]
+
+
+_DEVICE_GRAPHS: Dict[torch.device, _DeviceGraphs] = {}
+
+
+def _write_back_gradient(perc: Perceptor, cfg: Config, leaf, w, te, tw) -> None:
+    """What a chunk graph captures: the gradient of the chunk held in
+    `leaf`, written back into `leaf`."""
+    with torch.enable_grad():
+        g = _chunk_gradient(perc, cfg, leaf.detach().requires_grad_(True), w, te, tw)
+    with torch.no_grad():
+        leaf.copy_(g)
+
+
+def _capture_chunk(perc: Perceptor, cfg: Config, chunk, w) -> Optional[_ChunkGraph]:
+    """A CUDA graph of `_chunk_gradient` on the device's static buffers
+    that writes the gradient back into the leaf, or None where the device
+    cannot hold the graph's scratch beside the step (module docstring).
+    Resets the device's peak memory statistics."""
+    device = chunk.device
+    shared = _DEVICE_GRAPHS.get(device)
+    if shared is None:
+        shared = _DEVICE_GRAPHS[device] = _DeviceGraphs(device)
+    with torch.cuda.device(device), torch.inference_mode(False), torch.no_grad():
+        leaf, wbuf = shared.buffer(chunk), shared.buffer(w)
+        te, tw = (t.clone(memory_format=torch.contiguous_format)
+                  for t in (perc.text_embeddings, perc.text_weights))
+        wbuf.copy_(w)
+        run = functools.partial(_write_back_gradient, perc, cfg, leaf, wbuf, te, tw)
+        # cuBLAS and cuDNN pick algorithms and workspaces before the capture;
+        # the warm-up's peak above what was allocated is the graph's scratch
+        current = torch.cuda.current_stream(device)
+        base = torch.cuda.memory_allocated(device)
+        retries = torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
+        torch.cuda.reset_peak_memory_stats(device)
+        shared.stream.wait_stream(current)
+        with torch.cuda.stream(shared.stream):
+            for _ in range(2):
+                leaf.copy_(chunk)
+                run()
+        current.wait_stream(shared.stream)
+        scratch = torch.cuda.max_memory_allocated(device) - base
+        if (torch.cuda.memory_stats(device).get("num_alloc_retries", 0) > retries
+                or torch.cuda.mem_get_info(device)[0] < scratch):
+            return None
+        # not `torch.cuda.graph`, which empties the cache: the blocks the step
+        # keeps cached are what the next key's check must see as taken
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(shared.stream):
+            graph.capture_begin(pool=shared.pool())
+            try:
+                run()
+            finally:
+                graph.capture_end()
+        shared.graphs.add(graph)
+    return _ChunkGraph(graph, leaf, wbuf, te, tw)
+
+
+def _replayed_gradient(tower, perc: Perceptor, cfg: Config, chunk, w):
+    """The chunk's gradient from `tower`'s graph for its key, captured on
+    the key's first call; None where the key runs eagerly."""
+    graphs = tower._graphs
+    key = tower_graph_key(perc, cfg, chunk, w)
+    if key in graphs:
+        graphs.move_to_end(key)
+    else:
+        graphs[key] = _capture_chunk(perc, cfg, chunk, w)
+        if len(graphs) > TOWER_GRAPHS_PER_MODEL:
+            graphs.popitem(last=False)
+    entry = graphs[key]
+    if entry is None:
+        return None
+    with torch.no_grad():
+        entry.leaf.copy_(chunk)
+        entry.w.copy_(w)
+        entry.te.copy_(perc.text_embeddings)
+        entry.tw.copy_(perc.text_weights)
+    with annotate("guided.tower.replay"):
+        entry.graph.replay()
+    # the leaf is overwritten by the next replay of its shape
+    return entry.leaf
+
+
 def _cut_gradient(pipe: GuidedPipeline, members, normed, weights):
     """Gradient of the members' CLIP and aesthetic losses with respect to
-    the normalized cuts (B, N, S, S, 3), one tower chunk at a time."""
+    the normalized cuts (B, N, S, S, 3), one tower chunk at a time,
+    accumulated in float32 tower by tower, chunk by chunk.  On CUDA a
+    CLIP tower's chunk replays its CUDA graph (module docstring)."""
     cfg = pipe.config
-    b, n = normed.shape[:2]
-    tail = normed.shape[2:]
+    n = normed.shape[1]
     chunk = cfg.clip_cut_chunk if cfg.clip_cut_chunk > 0 else n
     grad = torch.zeros(normed.shape, dtype=torch.float32, device=normed.device)
     for pi in members:
         perc = pipe.perceptors[pi]
+        tower = getattr(perc.embed_image, "__self__", None)
+        graphed = normed.is_cuda and isinstance(tower, CLIPModel)
         with annotate("guided.tower"):
             for i in range(0, n, chunk):
-                leaf = normed[:, i:i + chunk].detach().requires_grad_(True)
-                embs = perc.embed_image(leaf.reshape((-1,) + tail)).reshape(b, leaf.shape[1], -1)
+                cuts = normed[:, i:i + chunk].detach()
                 w = weights[:, i:i + chunk]
-                loss = cfg.clip_guidance_scale * torch.sum(w * _prompt_distance(embs, perc))
-                if perc.aesthetic_fn is not None and cfg.aesthetic_scale > 0:
-                    scores = perc.aesthetic_fn(l2_normalize(embs, dim=-1))[..., 0]
-                    loss = loss - cfg.aesthetic_scale * torch.sum(w * scores)
-                (g,) = torch.autograd.grad(loss, leaf)
+                g = _replayed_gradient(tower, perc, cfg, cuts, w) if graphed else None
+                if g is None:
+                    g = _chunk_gradient(perc, cfg, cuts.requires_grad_(True), w,
+                                        perc.text_embeddings, perc.text_weights)
                 grad[:, i:i + chunk] += g
     return grad.to(normed.dtype)
 

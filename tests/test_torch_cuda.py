@@ -38,6 +38,10 @@ from clip_diffusion_tpu_torch.models.marian import MarianConfig, greedy_decode, 
 from clip_diffusion_tpu_torch.models.t5 import SentenceT5, T5Config, t5_tokenize
 from clip_diffusion_tpu_torch.text.retrieval import EmbeddingIndex
 from clip_diffusion_tpu_torch.ops.augment import affine_gather
+from clip_diffusion_tpu_torch.config import Config
+from clip_diffusion_tpu_torch.models.aesthetic import LinearAestheticPredictor
+from clip_diffusion_tpu_torch.models.clip.model import CLIPModel, tiny_clip_config
+from clip_diffusion_tpu_torch.pipeline import guided
 from clip_diffusion_tpu_torch.pipeline.guided import TorchDraws
 from clip_diffusion_tpu_torch.pipeline.latent import decode_latents, latent_sample
 from clip_diffusion_tpu_torch.utils import profiling
@@ -304,6 +308,86 @@ def test_ldm_unet_graph_replays_the_eager_forward(cuda, dtype, monkeypatch):
     hook.remove()
     assert len(unet._graphs) == GRAPHS_PER_MODULE == 4
     assert [key[0][0][0] for key in unet._graphs] == [1, 3, 4, 5]
+
+
+def _bf16_tower(dev, seed: int, resnet: bool = False) -> CLIPModel:
+    cfg = dataclasses.replace(tiny_clip_config(f"tiny{seed}", resnet), dtype=torch.bfloat16)
+    tower = CLIPModel(cfg)
+    tower.load_state_dict(zoo.host_init_state_dict(tower, from_jax.clip_rule, seed,
+                                                   torch.bfloat16))
+    return tower.to(dev).requires_grad_(False)
+
+
+def _tower_spans(fn) -> int:
+    """`guided.tower.replay` spans recorded while `fn` runs under a profile."""
+    before = len([s for s in profiling.spans() if s.name == "guided.tower.replay"])
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    return len([s for s in profiling.spans() if s.name == "guided.tower.replay"]) - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["two_vits_one_head", "resnet_head"])
+def test_tower_chunk_graphs_equal_the_eager_body(cuda, kind, monkeypatch):
+    """`_cut_gradient` on the card with bf16 tiny towers, 24 cuts a row at
+    batch 2 in chunks of 16 and 8: each tower's chunks replayed from their
+    CUDA graphs give the eager body's gradient bit for bit (the eager
+    reference: the same towers behind a lambda, which never capture), two
+    towers of one resolution sharing the static leaf, with an aesthetic
+    head on one; a second prompt's embeddings and weights through the same
+    graphs; and again after `.to()` drops a tower's graphs.  One
+    `guided.tower.replay` span a chunk."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(profiling, "_RECORDER", profiling.Recorder())
+    towers = ([_bf16_tower(cuda, 2), _bf16_tower(cuda, 3)] if kind == "two_vits_one_head"
+              else [_bf16_tower(cuda, 4, resnet=True)])
+    head = LinearAestheticPredictor(64).to(cuda).requires_grad_(False)
+    cfg = Config(clip_cut_chunk=16, aesthetic_scale=3.0)
+    res = towers[0].cfg.image_resolution
+    g = torch.Generator(cuda).manual_seed(5)
+
+    def perceptors(seed: int, eager: bool):
+        out = []
+        for i, tower in enumerate(towers):
+            gen = torch.Generator(cuda).manual_seed(10 * seed + i)
+            embed = (lambda x, t=tower: t.encode_image(x)) if eager else tower.encode_image
+            out.append(guided.Perceptor(
+                name=f"t{i}", embed_image=embed, input_resolution=res,
+                text_embeddings=torch.randn((2, 64), generator=gen, device=cuda),
+                text_weights=torch.rand((2,), generator=gen, device=cuda),
+                aesthetic_fn=head if i == len(towers) - 1 else None))
+        return tuple(out)
+
+    def grads(seed: int, eager: bool, normed, weights):
+        pipe = guided.GuidedPipeline(unet=None, perceptors=perceptors(seed, eager),
+                                     config=cfg, sampler=None, schedule=None, device=cuda)
+        with torch.enable_grad():
+            return guided._cut_gradient(pipe, list(range(len(towers))), normed, weights)
+
+    # (prompt seed, move the first tower first): a capture, a replay, a new
+    # prompt through the same graphs, a recapture after the move
+    for k, (seed, move) in enumerate([(0, False), (0, False), (1, False), (1, True)]):
+        if move:
+            towers[0].to(cuda)
+            assert not towers[0]._graphs
+        normed = torch.randn((2, 24, res, res, 3), generator=g, device=cuda).to(torch.bfloat16)
+        weights = torch.rand((2, 24), generator=g, device=cuda)
+        want = grads(seed, True, normed, weights)
+        assert torch.equal(want, grads(seed, True, normed, weights)), "eager differs from itself"
+        if k == 0 or move:  # capture outside the profile
+            got = grads(seed, False, normed, weights)
+            assert torch.equal(got, want), f"capturing call {k}: {(got - want).abs().max()}"
+        out = []
+        replays = _tower_spans(lambda: out.append(grads(seed, False, normed, weights)))
+        assert replays == 2 * len(towers), (k, replays)
+        assert torch.equal(out[0], want), f"call {k}: {(out[0] - want).abs().max().item()}"
+        for tower in towers:
+            assert [key[0][1] for key in tower._graphs] == [16, 8]
+            assert all(entry is not None for entry in tower._graphs.values())
+    leaves = {id(e.leaf) for t in towers for e in t._graphs.values()}
+    assert len(leaves) == 2  # one static leaf a chunk shape, whatever the tower
 
 
 @pytest.mark.cuda
